@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (hifiasm_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits nonzero:
+
+1. card identity (nvidia-smi name and power limit);
+2. build every CUDA kernel and the native host library from the sources
+   in this checkout, side by side, so that no later phase times a build;
+3. K1 (csrc/banded_tb.cu) against its plain PyTorch version on the card
+   at the production shape (XL = 775, e = 31, 65,536 windows with ragged
+   lengths and dead lanes): every output bit-equal; times of both;
+4. the main path end to end on the card: a synthetic 4 Mb genome, HiFi
+   reads of 15 kb at 30x depth with 0.3% error (~120 Mb), the default
+   3 EC rounds through ``assemble(..., device="cuda")``; the kernel
+   launch counts are zeroed just before and read just after;
+5. card against plain end to end: a small store assembled with
+   device="cuda" and with device="cpu" gives byte-identical outputs.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+package beside this script, it exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM (NVIDIA data sheet and Hopper whitepaper): 3.35 TB/s HBM3;
+# 132 SMs at 1.98 GHz boost, each SM with 64 lanes a clock on the integer
+# ALU pipe and 64 on the FMA pipe (which also runs IMAD)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# K1's operations: the instructions of its two loops in `cuobjdump -sass`
+# of the sm_90a library that phase 2 builds from csrc/banded_tb.cu, as
+# (integer ALU pipe, IMAD on the FMA pipe); loads, stores and branches are
+# left out, and so is the work outside the two loops.
+# Forward loop (unrolled x2), per x row:
+K1_ROW = (44, 11.5)             # every row
+K1_ROW_PICK = (7, 2)            # more when x[i] != 0 (Peq select chain)
+K1_ROW_YLOAD = (20, 0)          # more when y[i + W] enters the band
+# traceback loop, per move
+K1_MOVE_DIAG = (33, 11)
+K1_MOVE_INS = (51, 14)
+K1_MOVE_DEL = (52, 16)
+
+# the production shapes the gate runs at; a cut is recorded in PERF.md
+K1_WINDOWS = 65536          # one DeviceEC chunk of windows
+MAIN_DEPTH = 30.0           # read depth of the main-path run
+
+
+def _mutate(seq, n_err, rng):
+    s = list(seq)
+    for _ in range(n_err):
+        k = rng.choice(3)
+        p = int(rng.integers(0, len(s)))
+        if k == 0:
+            s[p] = int(rng.integers(0, 4))
+        elif k == 1 and len(s) > 1:
+            del s[p]
+        else:
+            s.insert(p, int(rng.integers(0, 4)))
+    return np.array(s, np.uint8)
+
+
+def k1_problems(rng, B: int, XL: int, e: int):
+    """Windows made by mutating random sequences: ragged xlen/ylen, some
+    ylen < xlen, and dead lanes (xlen = 0, ylen = 0)."""
+    YL = XL + 2 * e
+    x = np.full((B, XL), 4, np.uint8)
+    y = np.full((B, YL), 4, np.uint8)
+    xlen = np.zeros(B, np.int32)
+    ylen = np.zeros(B, np.int32)
+    for b in range(B):
+        xl = XL if b % 3 else int(rng.integers(XL // 2, XL + 1))
+        base = rng.integers(0, 4, xl).astype(np.uint8)
+        yb = _mutate(base, int(rng.integers(0, 40)), rng)
+        off = int(rng.integers(0, 2 * e + 1))
+        yfull = np.concatenate(
+            [rng.integers(0, 4, off).astype(np.uint8), yb,
+             rng.integers(0, 4, YL).astype(np.uint8)])[:YL]
+        yl = YL if b % 4 else int(rng.integers(1, YL))
+        if b % 17 == 0:
+            yl = int(rng.integers(1, max(xl, 2)))
+        x[b, :xl] = base
+        xlen[b] = xl
+        y[b, :yl] = yfull[:yl]
+        ylen[b] = yl
+    xlen[::997] = 0
+    ylen[1::1009] = 0
+    return x, xlen, y, ylen
+
+
+def _cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn`` on the card (CUDA events)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def k1_bound(x, xlen, ylen, tb, ic, e: int) -> dict:
+    """What K1 must do for these windows: the bytes it must move (each
+    input read once, each output written once) and the instructions its
+    two loops run, per pipe, for this data."""
+    B, XL = x.shape
+    YL, W = XL + 2 * e, 2 * e + 1
+    xl_eff = np.clip(xlen.astype(np.int64), 0, XL)
+    in_x = np.arange(XL)[None, :] < xl_eff[:, None]
+    n = {"rows": int(xl_eff.sum()),
+         "rows_pick": int(((x != 0) & in_x).sum()),
+         "rows_yload": int(np.clip(np.minimum(ylen.astype(np.int64), YL)
+                                   - W, 0, xl_eff).sum()),
+         "diag": int((tb < 4).sum()),
+         "ins": int(ic.long().sum()),
+         "del": int((tb == 4).sum())}
+    per = {"rows": K1_ROW, "rows_pick": K1_ROW_PICK,
+           "rows_yload": K1_ROW_YLOAD, "diag": K1_MOVE_DIAG,
+           "ins": K1_MOVE_INS, "del": K1_MOVE_DEL}
+    n["alu"] = sum(n[k] * per[k][0] for k in per)
+    n["fma"] = sum(n[k] * per[k][1] for k in per)
+    n["bytes"] = B * (XL + YL + 8) + B * (12 + 3 * XL)
+    return n
+
+
+def phase_k1(B: int, seed: int = 7):
+    import torch
+
+    from hifiasm_tpu_torch.ops.banded_tb import banded_tb, banded_tb_torch
+
+    XL, e = 775, 31
+    t0 = time.time()
+    x, xlen, y, ylen = k1_problems(np.random.default_rng(seed), B, XL, e)
+    print(f"[k1] made {B} windows in {time.time() - t0:.1f} s", flush=True)
+    args = [torch.as_tensor(a).cuda() for a in (x, xlen, y, ylen)]
+    saved = banded_tb.launches
+    got = banded_tb(*args, e)
+    ref = banded_tb_torch(*args, e)
+    torch.cuda.synchronize()
+    names = ("err", "y_start", "y_end", "tb", "ic", "ib")
+    max_err = 0
+    for n, a, b in zip(names, got, ref):
+        d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        max_err = max(max_err, d)
+        if not torch.equal(a, b):
+            raise AssertionError(f"K1 {n} differs from the plain version "
+                                 f"(max abs diff {d})")
+    ok = int((got[0] >= 0).sum())
+    print(f"[k1] bit-equal on all {B} windows ({ok} aligned, "
+          f"{B - ok} failed)", flush=True)
+    banded_tb(*args, e)                              # warm-up
+    ms = _cuda_ms(lambda: banded_tb(*args, e), 10)
+    plain_ms = _cuda_ms(lambda: banded_tb_torch(*args, e), 3)
+    banded_tb.launches = saved       # comparison launches do not count
+    work = k1_bound(x, xlen, ylen, got[3], got[4], e)
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    # the two pipes run side by side: the busier one sets the time
+    t_ops = max(work["alu"], work["fma"]) / INT32_OPS_PER_S * 1e3
+    rec = {"name": "banded_tb", "route": "cuda",
+           "source": "hifiasm_tpu_torch/csrc/banded_tb.cu",
+           "replaces": "hifiasm_tpu/ops/pallas_tb.py:440",
+           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    print(f"[k1] XL={XL} e={e} B={B}: kernel {ms:.3f} ms "
+          f"({B / ms * 1e3:.0f} windows/s), plain {plain_ms:.3f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+          f"{json.dumps(work)})", flush=True)
+    return rec
+
+
+def _n50(lens):
+    lens = sorted(lens, reverse=True)
+    half, acc = sum(lens) / 2, 0
+    for n in lens:
+        acc += n
+        if acc >= half:
+            return n
+    return 0
+
+
+def _contig_lens(path):
+    lens, cur = [], None
+    with open(path) as f:
+        for ln in f:
+            if ln.startswith(">"):
+                if cur is not None:
+                    lens.append(cur)
+                cur = 0
+            else:
+                cur += len(ln.strip())
+    if cur is not None:
+        lens.append(cur)
+    return lens
+
+
+def _synth():
+    """tests/synth.py (numpy only), loaded by path: another installed
+    package named ``tests`` must not shadow it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "hifiasm_synth", os.path.join(ROOT, "tests", "synth.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _store(genome_len, depth, read_len, err, seed):
+    from hifiasm_tpu_torch.io.readstore import ReadStore
+
+    synth = _synth()
+    rng = np.random.default_rng(seed)
+    g = synth.make_genome(rng, genome_len)
+    reads, _, _ = synth.sample_reads(rng, g, depth=depth,
+                                     read_len=read_len, err_rate=err)
+    return ReadStore.from_arrays([f"r{i}" for i in range(len(reads))],
+                                 reads)
+
+
+def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
+               err: float):
+    import torch
+
+    import hifiasm_tpu_torch.ec.device_ec as D
+    import hifiasm_tpu_torch.ec.pipeline as P
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+
+    t0 = time.time()
+    store = _store(genome_len, depth, read_len, err, seed=11)
+    print(f"[main] {store.n_reads} reads, {store.total_bases} bases "
+          f"(genome {genome_len}, {depth}x, {read_len} bp, err {err}) "
+          f"made in {time.time() - t0:.1f} s", flush=True)
+    pfx = os.path.join(out_dir, "asm")
+    cfg = HifiasmConfig(output_prefix=pfx, ignore_bin=True)
+    torch.cuda.reset_peak_memory_stats()
+    for k in D.STATS:
+        D.STATS[k] = 0
+    for k in P.STATS:
+        P.STATS[k] = 0
+    banded_tb.launches = 0
+    t0 = time.time()
+    res = assemble(store, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"banded_tb": banded_tb.launches}
+    gfa = f"{pfx}.bp.p_ctg.gfa"
+    with open(gfa) as f:
+        n_seg = sum(1 for ln in f if ln.startswith("S\t"))
+    if n_seg == 0:
+        raise AssertionError(f"{gfa} has no contigs")
+    if launches["banded_tb"] == 0:
+        raise AssertionError("the main path launched no K1 kernel")
+    lens = _contig_lens(f"{pfx}.p_ctg.fa")
+    tot = sum(lens)
+    if not 0.8 * genome_len <= tot <= 1.25 * genome_len:
+        raise AssertionError(f"p_ctg total {tot} bp is not within "
+                             f"[0.8, 1.25] x the {genome_len} bp genome")
+    stats = {"bases": int(store.total_bases), "reads": int(store.n_reads),
+             "wall_s": wall, "bases_per_s": store.total_bases / wall,
+             "contigs": len(lens), "n50": _n50(lens), "p_ctg_bp": tot,
+             "stage_s": res.stage_s,
+             "ec_s": {k: v for k, v in P.STATS.items() if k.endswith("_s")},
+             "device_ec_parts_s": {k: v for k, v in D.STATS.items()
+                                   if k.endswith("_s")},
+             "k1_launches": launches["banded_tb"],
+             "windows_aligned": D.STATS["windows"],
+             "retry_windows": D.STATS["retry_windows"],
+             "host_dag_reads": P.STATS["host_dag_reads"],
+             "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    print("[main] " + json.dumps(stats), flush=True)
+    return launches, stats
+
+
+def phase_small(out_dir: str):
+    """Small store (12 kb genome, depth 12, 1,800 bp reads): the four
+    outputs must be byte-identical between the card and the CPU."""
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        store = _store(12000, 12, 1800, 0.004, seed=11)
+        pfx = os.path.join(out_dir, f"small_{dev}")
+        assemble(store, HifiasmConfig(output_prefix=pfx, ignore_bin=True),
+                 device=dev)
+        outs[dev] = pfx
+    for suf in ("bp.p_ctg.gfa", "bp.r_utg.gfa", "bp.p_utg.gfa", "p_ctg.fa"):
+        with open(f"{outs['cuda']}.{suf}", "rb") as a, \
+                open(f"{outs['cpu']}.{suf}", "rb") as b:
+            da, db = a.read(), b.read()
+        if da != db or not da:
+            raise AssertionError(f"small store: {suf} differs between "
+                                 "cuda and cpu (or is empty)")
+    print("[small] cuda and cpu outputs byte-identical", flush=True)
+
+
+def phase_build():
+    """Compile K1 (nvcc) and the native host library (g++) at once; raise
+    if either does not load."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hifiasm_tpu_torch import native
+    from hifiasm_tpu_torch.ops import cuda_build
+
+    def timed(fn):
+        t0 = time.time()
+        return fn(), time.time() - t0
+
+    with ThreadPoolExecutor(2) as ex:
+        k1 = ex.submit(timed, lambda: cuda_build.load("banded_tb"))
+        nat = ex.submit(timed, native.get_lib)
+        _, k1_s = k1.result()
+        lib, nat_s = nat.result()
+    for ln in cuda_build.BUILD_LOGS.get("banded_tb", "").strip().splitlines():
+        print(f"[build:banded_tb] {ln}", flush=True)
+    if lib is None:
+        raise RuntimeError("the native host library did not build:\n"
+                           + native.BUILD_LOG)
+    print(f"[build] banded_tb {k1_s:.1f} s, native host library "
+          f"{nat_s:.1f} s (in parallel)", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "hifiasm_tpu_torch")):
+        print("chip_smoke: hifiasm_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    t_start = time.time()
+
+    # 1. card identity
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    # 2. build every kernel and the native host library
+    phase_build()
+
+    # 3. K1 against its plain version at the production shape
+    rec = phase_k1(K1_WINDOWS)
+
+    out_dir = os.path.join(ROOT, "build", "smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # 4. the main path end to end on the card
+    launches, _ = phase_main(out_dir, 4_000_000, MAIN_DEPTH, 15000, 0.003)
+    rec["launches"] = launches["banded_tb"]
+    # 5. card against plain end to end
+    phase_small(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    print(f"[done] {time.time() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": [rec]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,703 @@
+"""Device-resident error correction on one CUDA card (or, on request, the CPU).
+
+The port of hifiasm_tpu/ec/device_ec.py.  The whole read store lives on
+the device as a [R, 2, Lp] uint8 bank (forward and reverse-complement
+planes, padded with 4).  Per batch of reads:
+
+  L1 align     gather every window from the bank and align it with K1
+               (ops/banded_tb.py); tracebacks stay on the device; one
+               boundary-retry round (window_align.retry_plan)
+  L2 rawcnt    allele counts per (read, pos) over accepted windows
+  het          het sites + alternate alleles (ec/phase.het_from_counts,
+               integer form)
+  L3 hetagree  per-overlap agreement at het sites -> cis/trans
+  L4 cisvotes  consensus votes + insertion aggregates over cis windows,
+               plus the window-seam insertion votes
+  L5 decide    consensus_decide + ambiguity mask; only PACKED bit and
+               nibble planes come back to the host
+
+The JAX package aggregates with one-hot int8 matmuls and log-shift rolls,
+which work around the TPU's slow scatters.  Here every aggregation is an
+integer scatter-add (``index_add_``) at the absolute position ws + i.
+Integer adds commute, so the sums do not depend on the order and stay
+bit-identical with the JAX package and the host rules.  Masked entries
+go to one spare slot past the end of each accumulator, which keeps the
+scatters free of host synchronisation.
+
+Reference scope covered: gen_hc_r_alin_ea (ecovlp.cpp:2810), rphase_hc
+(:3301), wcns_gen (:2293).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hifiasm_tpu_torch.config import THRESHOLD_MAX_SIZE, WINDOW_HC
+from hifiasm_tpu_torch.device import resolve_device
+from hifiasm_tpu_torch.ec.window_align import plan_read_windows, retry_plan
+from hifiasm_tpu_torch.io.readstore import ReadStore, revcomp_codes
+from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+from hifiasm_tpu_torch.overlap.anchors import OverlapRegions
+from hifiasm_tpu_torch.utils.logging import log
+
+E_BAND = THRESHOLD_MAX_SIZE          # one static band for all windows
+
+# windows per L1 launch and per aggregation step: bounds the [chunk, XL]
+# index temporaries and K1's move log (~1 GiB at XL = 775)
+CHUNK_CUDA = 65536
+CHUNK_CPU = 8192
+
+# Left pad: y starts go negative down to -(E_BAND + window) through the
+# boundary-retry plan, so the bank rows carry pad 4 there; the right pad
+# covers span + realign slack.
+_PAD_L = 1024
+_PAD_R = 1024
+
+# counters of the runs since the caller last reset them: windows aligned
+# in L1, windows re-aligned by the retry round, and host-clock seconds of
+# bank upload, window planning (host), L1 (gather + K1, synced), L2-L5
+# (synced at the packed-plane fetch) and the rest of the host work
+STATS = {"windows": 0, "retry_windows": 0, "bank_s": 0.0, "plan_s": 0.0,
+         "align_s": 0.0, "vote_s": 0.0, "host_s": 0.0}
+
+
+@dataclass
+class DeviceBank:
+    bank: torch.Tensor     # [R, 2, Lp] uint8 (pad 4 outside the read)
+    lens: torch.Tensor     # [R] int64
+    L: int                 # plane width (max read length, bucketed)
+    R: int
+    Lp: int
+
+
+def build_bank(store: ReadStore, device, l_bucket: int = 2048) -> DeviceBank:
+    R = store.n_reads
+    maxlen = int(store.lens.max()) if R else 1
+    L = ((maxlen + l_bucket - 1) // l_bucket) * l_bucket
+    Lp = _PAD_L + L + _PAD_R
+    arr = np.full((max(R, 1), 2, Lp), 4, np.uint8)
+    for rid in range(R):
+        c = store.get_codes(rid)
+        arr[rid, 0, _PAD_L:_PAD_L + len(c)] = c
+        arr[rid, 1, _PAD_L:_PAD_L + len(c)] = revcomp_codes(c)
+    bank = torch.from_numpy(arr).to(device)
+    lens = torch.as_tensor(np.asarray(store.lens, np.int64)[:R],
+                           device=device)
+    return DeviceBank(bank, lens, L, R, Lp)
+
+
+def _take(flat: torch.Tensor, row_base: torch.Tensor, col0: torch.Tensor,
+          n: int, Lp: int) -> torch.Tensor:
+    """[N, n] slices of bank rows starting at col0; 4 outside the row."""
+    col = col0[:, None] + torch.arange(n, device=flat.device)[None, :]
+    ok = (col >= 0) & (col < Lp)
+    g = flat[row_base[:, None] + col.clamp(0, Lp - 1)]
+    return torch.where(ok, g, torch.full_like(g, 4))
+
+
+def gather_windows(bank: DeviceBank, XL: int, e: int, q_rid, q_ws, xlen,
+                   t_rid, t_rev, t_ws, last):
+    """Window inputs of K1 from the bank (port of device_ec._gather_align):
+    x = query forward plane at ws, y = target plane (rev-comp when t_rev)
+    from t_ws - e; ylen clips at the target's end; the last window of an
+    overlap shortens x to the available y."""
+    YL = XL + 2 * e
+    flat = bank.bank.view(-1)
+    Lp = bank.Lp
+    x = _take(flat, q_rid * (2 * Lp), _PAD_L + q_ws, XL, Lp)
+    y0 = t_ws - e
+    y = _take(flat, (t_rid * 2 + t_rev) * Lp, _PAD_L + y0, YL, Lp)
+    ylen = (bank.lens[t_rid] - y0).clamp(0, YL)
+    xlen_eff = torch.where(last & (ylen < xlen), ylen, xlen)
+    return (x.contiguous(), xlen_eff.int().contiguous(), y.contiguous(),
+            ylen.int().contiguous())
+
+
+# ---------------------------------------------------------------------------
+# L2-L4: integer scatter-add aggregation at absolute read positions
+
+
+def _abs_index(XL: int, L: int, q_row, q_ws, xlen, qlen_w, okm):
+    """Flat (row, pos) index [N, XL] of each window column and its mask:
+    inside [ws, ws + xlen), on a kept window, before the read's end."""
+    i = torch.arange(XL, device=q_row.device)[None, :]
+    pos = q_ws[:, None] + i
+    valid = okm[:, None] & (i < xlen[:, None]) & (pos < qlen_w[:, None])
+    return q_row[:, None] * L + pos, valid
+
+
+def _scatter_count(acc_flat: torch.Tensor, idx: torch.Tensor,
+                   keep: torch.Tensor) -> None:
+    """acc_flat[idx] += 1 where keep; dropped entries land in the spare
+    last slot."""
+    dump = acc_flat.numel() - 1
+    idx = torch.where(keep, idx, torch.full_like(idx, dump)).reshape(-1)
+    acc_flat.index_add_(0, idx, torch.ones_like(idx, dtype=acc_flat.dtype))
+
+
+def raw_counts_add(cnt: torch.Tensor, L: int, tb, q_row, q_ws, xlen,
+                   qlen_w, w_ok) -> None:
+    """cnt [5*Rp*L + 1] int32 += per-allele counts (port of
+    _raw_counts_scan): class tb in 0..4 at (row, ws + i)."""
+    XL = tb.shape[1]
+    RL = (cnt.numel() - 1) // 5
+    pos, valid = _abs_index(XL, L, q_row, q_ws, xlen, qlen_w, w_ok)
+    cls = tb.long()
+    _scatter_count(cnt, cls * RL + pos, valid & (cls < 5))
+
+
+def het_agree_add(n_same: torch.Tensor, n_flip: torch.Tensor,
+                  bank_rows: torch.Tensor, alt: torch.Tensor,
+                  het: torch.Tensor, tb, q_row, q_ws, xlen, qlen_w, w_ok,
+                  ov) -> None:
+    """Per-overlap same/flip counts at het sites (port of
+    _het_agree_scan); n_same/n_flip are [n_ov + 1] int32, dropped windows
+    land in the spare slot."""
+    XL = tb.shape[1]
+    L = bank_rows.shape[1]
+    pos, valid = _abs_index(XL, L, q_row, q_ws, xlen, qlen_w, w_ok)
+    p = torch.where(valid, pos, torch.zeros_like(pos))
+    qa = bank_rows.reshape(-1)[p].long()
+    al = alt.reshape(-1)[p].long()
+    hz = het.reshape(-1)[p]
+    t = tb.long()
+    validp = valid & (t <= 3) & (hz > 0)
+    same_p = (validp & (t == qa)).sum(1, dtype=torch.int32)
+    flip_p = (validp & (t == al)).sum(1, dtype=torch.int32)
+    dump = n_same.numel() - 1
+    idx = torch.where(w_ok, ov, torch.full_like(ov, dump))
+    n_same.index_add_(0, idx, same_p)
+    n_flip.index_add_(0, idx, flip_p)
+
+
+def cis_votes_add(votes, ins_tot, ins_bc, ins_lc, L: int, tb, ic, ib,
+                  q_row, q_ws, xlen, qlen_w, w_cis) -> None:
+    """votes [5*Rp*L+1], ins_tot [Rp*L+1], ins_bc [4*Rp*L+1],
+    ins_lc [9*Rp*L+1] int32 += cis-window votes (port of
+    _cis_votes_scan)."""
+    XL = tb.shape[1]
+    RL = ins_tot.numel() - 1
+    pos, valid = _abs_index(XL, L, q_row, q_ws, xlen, qlen_w, w_cis)
+    cls = tb.long()
+    _scatter_count(votes, cls * RL + pos, valid & (cls < 5))
+    c = ic.long()
+    has = valid & (c > 0)
+    _scatter_count(ins_tot, pos, has)
+    b = ib.long()
+    _scatter_count(ins_bc, b * RL + pos, has & (b < 4))
+    _scatter_count(ins_lc, c.clamp(max=8) * RL + pos, has)
+
+
+def seam_add(ins_tot, ins_bc, ins_lc, Rp: int, L: int, rowc, colc, base,
+             glen, ov, is_match) -> None:
+    """Window-SEAM insertion votes (port of _seam_add): one unit vote per
+    seam of a cis overlap; out-of-range entries are dropped."""
+    RL = Rp * L
+    okm = (is_match[ov] == 1) & (rowc >= 0) & (rowc < Rp) & \
+        (colc >= 0) & (colc < L) & (base >= 0) & (base < 4)
+    pos = rowc * L + colc
+    _scatter_count(ins_tot, pos, okm)
+    _scatter_count(ins_bc, base * RL + pos, okm)
+    _scatter_count(ins_lc, glen.clamp(max=8) * RL + pos, okm & (glen >= 0))
+
+
+def classify(n_same, n_flip, het_cnt, ov_qrow, usable) -> torch.Tensor:
+    """classify_overlaps (ec/phase.py:77): 1 cis, 2 trans, 0 unusable;
+    min_flip is 1 on reads with >= 3 het sites, else 2."""
+    min_flip = torch.where(het_cnt[ov_qrow] >= 3, 1, 2)
+    trans = usable & (n_flip > n_same) & (n_flip >= min_flip)
+    return torch.where(usable, torch.where(trans, 2, 1), 0).to(torch.uint8)
+
+
+def cis_mask(okm, ov, is_match) -> torch.Tensor:
+    return okm & (is_match[ov] == 1)
+
+
+# ---------------------------------------------------------------------------
+# het detection + consensus decisions; thresholds are the integer-exact
+# forms of the host rules (x > 0.500001*cov <=> 2x > cov, x > 0.25*cov
+# <=> 4x > cov), bit-identical with ec/phase.het_from_counts and
+# ec/consensus.consensus_decide / _ambiguous_mask
+
+
+def pack_bits(b: torch.Tensor) -> torch.Tensor:
+    """[Rp, L] bool -> [Rp, L//8] u8 (little bit order)."""
+    Rp, L = b.shape
+    w = b.reshape(Rp, L // 8, 8).int()
+    sh = torch.arange(8, device=b.device, dtype=torch.int32)
+    return (w << sh).sum(2, dtype=torch.int32).to(torch.uint8)
+
+
+def pack2(v: torch.Tensor) -> torch.Tensor:
+    """[Rp, L] 2-bit values -> [Rp, L//4] u8."""
+    Rp, L = v.shape
+    w = v.reshape(Rp, L // 4, 4).int()
+    sh = torch.arange(0, 8, 2, device=v.device, dtype=torch.int32)
+    return (w << sh).sum(2, dtype=torch.int32).to(torch.uint8)
+
+
+def pack4(v: torch.Tensor) -> torch.Tensor:
+    """[Rp, L] 4-bit values -> [Rp, L//2] u8."""
+    Rp, L = v.shape
+    w = v.reshape(Rp, L // 2, 2).int()
+    return (w[:, :, 0] | (w[:, :, 1] << 4)).to(torch.uint8)
+
+
+def _shift(a: torch.Tensor, k: int, fill) -> torch.Tensor:
+    """result[:, p] = a[:, p + k], ``fill`` outside the row."""
+    pad = torch.full((a.shape[0], abs(k)), fill, dtype=a.dtype,
+                     device=a.device)
+    if k > 0:
+        return torch.cat([a[:, k:], pad], dim=1)
+    return torch.cat([pad, a[:, :k]], dim=1)
+
+
+def het_planes(cnt: torch.Tensor, bank_rows: torch.Tensor,
+               qlen_rows: torch.Tensor):
+    """het_from_counts over the whole batch (port of _het_planes).
+    cnt [5, Rp, L] int32; returns (het_u8, alt_u8, packed het bits,
+    het count per row)."""
+    Rp, L = bank_rows.shape
+    pos = torch.arange(L, device=cnt.device)[None, :]
+    in_r = pos < qlen_rows[:, None]
+    q = bank_rows.int()
+    qa = q.clamp(max=3)
+    c = cnt
+    c4 = torch.stack([c[k] + ((qa == k) & in_r).int() for k in range(4)])
+    occ0 = c4.gather(0, qa[None].long())[0]
+    altc = torch.stack([torch.where(qa == k, torch.zeros_like(c4[k]), c4[k])
+                        for k in range(4)])
+    site_alt = torch.argmax(altc, dim=0).int()             # first max
+    occ1 = altc.max(dim=0).values
+    minor = torch.minimum(occ0, occ1)
+    het = (occ0 >= 2) & (occ1 >= 2) & (q <= 3) & \
+        (4 * minor >= occ0 + occ1) & in_r
+    # deletion-majority veto
+    het = het & ~(c[4] > c4.sum(0))
+    # alignment-SHIFT veto: adjacent pseudo-SNP pairs whose alt alleles
+    # are the query shifted by one are indel artifacts
+    pair = het & _shift(het, 1, False)
+    qa_m = torch.where(in_r, qa, torch.full_like(qa, 9))
+    pairL = pair & (pos >= 1) & (site_alt == _shift(qa_m, -1, 9)) & \
+        (_shift(site_alt, 1, -9) == qa_m)
+    pairR = pair & (pos + 2 < qlen_rows[:, None]) & \
+        (site_alt == _shift(qa_m, 1, 9)) & \
+        (_shift(site_alt, 1, -9) == _shift(qa_m, 2, 9))
+    dp = pairL | pairR
+    het = het & ~(dp | _shift(dp, -1, False))
+    alt = torch.where(het, site_alt, torch.zeros_like(site_alt)) \
+        .to(torch.uint8)
+    return (het.to(torch.uint8), alt, pack_bits(het),
+            het.sum(1, dtype=torch.int32))
+
+
+def finalize_ins(ins_bc: torch.Tensor, ins_lc: torch.Tensor):
+    """Majority insertion base (first max over 4) and length (first max
+    over 1..8)."""
+    b = torch.argmax(ins_bc, dim=0).to(torch.uint8)
+    ln = (torch.argmax(ins_lc[1:], dim=0) + 1).to(torch.uint8)
+    return b, ln
+
+
+def decide_planes(votes, ins_tot, ins_bc, ins_lc, het_u8, bank_rows,
+                  qlen_rows):
+    """consensus_decide + _ambiguous_mask (port of _decide_planes);
+    returns the packed (subw, pass_ins, ins base, ins len - 1, amb)."""
+    Rp, L = bank_rows.shape
+    pos = torch.arange(L, device=votes.device)[None, :]
+    in_r = pos < qlen_rows[:, None]
+    qa = bank_rows.int().clamp(max=3)
+    qsel = [((qa == k) & in_r).int() for k in range(4)]
+    v = torch.stack([votes[k] + qsel[k] for k in range(4)] + [votes[4]])
+    cov = v.sum(0)
+    winner = torch.argmax(v, dim=0).int()                  # first max
+    wv = v.max(dim=0).values
+    it = ins_tot
+    het = het_u8 > 0
+    pass_sub = (cov >= 3) & (2 * wv > cov) & (winner != qa) & in_r & ~het
+    # thin-coverage corner rescue: exactly one aligned voter corrects
+    vq = torch.stack([v[k] - qsel[k] for k in range(4)] + [v[4]])
+    v_tot = vq.sum(0)
+    v_win = torch.argmax(vq, dim=0).int()
+    thin = (cov == 2) & (v_tot == 1) & (v_win != qa) & in_r & ~het
+    thin_ins = (cov == 2) & (it == 1) & in_r & ~het
+    # burst guard: <= 2 rescue events per +-8 bp neighbourhood
+    ch = F.pad((thin | thin_ins).int(), (8, 8))
+    loc = sum(ch[:, 8 + d:8 + d + L] for d in range(-8, 9))
+    keep = loc <= 2
+    thin = thin & keep
+    thin_ins = thin_ins & keep
+    pass_sub = pass_sub | thin
+    winner = torch.where(thin, v_win, winner)
+    pass_ins = ((cov >= 3) & (2 * it > cov) | thin_ins) & in_r & ~het
+    dels = v[4]
+    amb = (cov >= 3) & ((2 * wv <= cov) |
+                        ((4 * dels > cov) & (2 * dels <= cov)) |
+                        ((4 * it > cov) & (2 * it <= cov))) & in_r & ~het
+    ib, il = finalize_ins(ins_bc, ins_lc)
+    subw = torch.where(pass_sub, winner, torch.full_like(winner, 15))
+    return (pack4(subw), pack_bits(pass_ins), pack2(ib), pack4(il - 1),
+            pack_bits(amb))
+
+
+def _unpack_bits(a: np.ndarray, L: int) -> np.ndarray:
+    return np.unpackbits(a, axis=1, bitorder="little")[:, :L] \
+        .astype(bool)
+
+
+def _unpack2(a: np.ndarray, L: int) -> np.ndarray:
+    out = np.zeros((a.shape[0], L), np.uint8)
+    for k in range(4):
+        out[:, k::4] = (a >> (2 * k)) & 3
+    return out
+
+
+def _unpack4(a: np.ndarray, L: int) -> np.ndarray:
+    out = np.zeros((a.shape[0], L), np.uint8)
+    out[:, 0::2] = a & 15
+    out[:, 1::2] = a >> 4
+    return out
+
+
+@dataclass
+class ReadECOut:
+    ov: OverlapRegions
+    is_match: np.ndarray
+    win_tot: np.ndarray
+    win_ok: np.ndarray
+    err: np.ndarray
+    ts: np.ndarray
+    te: np.ndarray
+    het_sites: np.ndarray
+
+
+class DeviceEC:
+    """Runs the EC stages on one device over all reads of a round."""
+
+    def __init__(self, store: ReadStore, wl: int = WINDOW_HC,
+                 e_rate: float = 0.04, device="cuda", chunk: int = 0):
+        self.device = resolve_device(device)
+        self.store = store
+        self.wl = wl
+        self.e_rate = e_rate
+        self.chunk = chunk if chunk > 0 else (
+            CHUNK_CUDA if self.device.type == "cuda" else CHUNK_CPU)
+        t0 = time.time()
+        self.bank = build_bank(store, self.device)
+        STATS["bank_s"] += time.time() - t0
+
+    def _t(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dtype)
+
+    def _align(self, q_rid, q_ws, xlen, t_rid, t_rev, t_ws, last):
+        """L1 over host window arrays: gather + K1 per chunk.  Returns host
+        (err, ys, yn) and device (tb, ic, ib) [n, XL] uint8."""
+        XL, e = self.wl, E_BAND
+        n = len(q_rid)
+        cols = [self._t(a) for a in (q_rid, q_ws, xlen, t_rid, t_rev, t_ws)]
+        last_d = self._t(last, torch.bool)
+        dev = self.device
+        err = torch.empty(n, dtype=torch.int32, device=dev)
+        ys = torch.empty_like(err)
+        yn = torch.empty_like(err)
+        tb = torch.empty((n, XL), dtype=torch.uint8, device=dev)
+        ic = torch.empty_like(tb)
+        ib = torch.empty_like(tb)
+        for c0 in range(0, n, self.chunk):
+            sl = slice(c0, min(n, c0 + self.chunk))
+            x, xl, y, yl = gather_windows(
+                self.bank, XL, e, *(c[sl] for c in cols), last_d[sl])
+            out = banded_tb(x, xl, y, yl, e)
+            for dst, src in zip((err, ys, yn, tb, ic, ib), out):
+                dst[sl] = src
+        return (err.cpu().numpy(), ys.cpu().numpy(), yn.cpu().numpy(),
+                tb, ic, ib)
+
+    def process(self, read_ovs: List[Tuple[int, OverlapRegions]]
+                ) -> Tuple[Dict[int, ReadECOut], Dict[int, tuple]]:
+        """read_ovs: [(rid, overlaps)]; returns per-read results plus
+        per-read consensus inputs (packed decision planes, unpacked).
+
+        Reads stream through in bounded batches: the vote/count planes
+        are sized [rows_per_batch, L], not [n_reads, L]."""
+        # ~1.5 GB of vote planes per batch: L*(5+5+1+4+9) int32 per row
+        rows = max(256, int(1.5e9 // max(self.bank.L * 96, 1)))
+        if len(read_ovs) <= rows:
+            return self._process_batch(read_ovs)
+        outs: Dict[int, ReadECOut] = {}
+        cns: Dict[int, tuple] = {}
+        for b0 in range(0, len(read_ovs), rows):
+            o, c = self._process_batch(read_ovs[b0:b0 + rows])
+            outs.update(o)
+            cns.update(c)
+        return outs, cns
+
+    def _process_batch(self, read_ovs: List[Tuple[int, OverlapRegions]]
+                       ) -> Tuple[Dict[int, ReadECOut], Dict[int, tuple]]:
+        bank = self.bank
+        R, L = len(read_ovs), bank.L
+        e = E_BAND
+        dev = self.device
+        _t0 = time.time()
+        # ---- plan all windows (host) ----
+        jobs = []
+        ov_base = {}
+        n_ov_tot = 0
+        win_tot_all = []
+        for rid, ov in read_ovs:
+            pl = plan_read_windows(ov, self.wl, self.e_rate)
+            ov_base[rid] = n_ov_tot
+            wt = np.zeros(len(ov), np.int32)
+            np.add.at(wt, pl["ov_idx"], 1)
+            win_tot_all.append(wt)
+            jobs.append((rid, ov, pl))
+            n_ov_tot += len(ov)
+        row_of = {rid: i for i, (rid, _) in enumerate(read_ovs)}
+
+        def cat(parts, dtype):
+            return np.concatenate(parts).astype(dtype) if jobs else \
+                np.zeros(0, dtype)
+
+        j_qrid = cat([np.full(len(p["ws"]), rid) for rid, _, p in jobs],
+                     np.int64)
+        j_qrow = cat([np.full(len(p["ws"]), row_of[rid])
+                      for rid, _, p in jobs], np.int64)
+        j_ws = cat([p["ws"] for _, _, p in jobs], np.int64)
+        j_xlen = cat([p["wlen"] for _, _, p in jobs], np.int64)
+        j_tws = cat([p["t_ws"] for _, _, p in jobs], np.int64)
+        j_thre = cat([p["thre"] for _, _, p in jobs], np.int64)
+        j_last = cat([p["last"] for _, _, p in jobs], bool)
+        j_ovid = cat([p["ov_idx"].astype(np.int64) + ov_base[rid]
+                      for rid, _, p in jobs], np.int64)
+        j_trid = cat([ov.y_id[p["ov_idx"]] for _, ov, p in jobs], np.int64)
+        j_trev = cat([ov.rev[p["ov_idx"]] for _, ov, p in jobs], np.int64)
+        STATS["plan_s"] += time.time() - _t0
+        _t0 = time.time()
+
+        def _mark(stage):
+            log("device_ec", f"{stage} +{time.time() - _t0:.2f}s")
+
+        W = len(j_qrid)
+        if W == 0:
+            z = np.zeros(0, np.int64)
+            return ({rid: ReadECOut(ov, np.zeros(0, np.uint8), z, z, z, z,
+                                    z, z) for rid, ov in read_ovs}, {})
+
+        # ---- L1: align every window; tracebacks stay on the device ----
+        t_dev = time.time()
+        err_all, ys_all, yn_all, tb1, ic1, ib1 = self._align(
+            j_qrid, j_ws, j_xlen, j_trid, j_trev, j_tws, j_last)
+        dev_s = {"align_s": time.time() - t_dev, "vote_s": 0.0}
+        err_all = err_all.astype(np.int32)
+        STATS["windows"] += W
+        _mark(f"L1 ({W} windows)")
+
+        # window acceptance: doubled per-window budget, capped at the band
+        accept = np.minimum(j_thre * 2, E_BAND)
+        w_ok = (err_all >= 0) & (err_all <= accept)
+
+        # ---- one boundary-retry round (window_align.retry_plan); retried
+        # tracebacks form a second segment, and the aggregation masks per
+        # slot, so a window's pass-1 slot stays dead once its retry wins
+        tws_fin = j_tws.copy()
+        y0p = tws_fin - e
+        win_y = np.stack([y0p + ys_all, y0p + yn_all], axis=1)
+        ridx, t2 = retry_plan(j_ovid, j_tws, j_xlen, w_ok, win_y, e)
+        ok_slot = w_ok.copy()
+        segs = [(tb1, ic1, ib1, j_qrid, j_qrow, j_ws, j_xlen, j_ovid)]
+        n_r = len(ridx)
+        if n_r:
+            t_dev = time.time()
+            e2, ys2, yn2, tb2, ic2, ib2 = self._align(
+                j_qrid[ridx], j_ws[ridx], j_xlen[ridx], j_trid[ridx],
+                j_trev[ridx], t2.astype(np.int64), j_last[ridx])
+            dev_s["align_s"] += time.time() - t_dev
+            STATS["retry_windows"] += n_r
+            acc2 = (e2 >= 0) & (e2 <= accept[ridx])
+            upd = ridx[acc2]
+            err_all[upd] = e2[acc2]
+            ys_all[upd] = ys2[acc2]
+            yn_all[upd] = yn2[acc2]
+            tws_fin[upd] = t2[acc2]
+            w_ok[upd] = True
+            ok_slot = np.concatenate([ok_slot, acc2])
+            segs.append((tb2, ic2, ib2, j_qrid[ridx], j_qrow[ridx],
+                         j_ws[ridx], j_xlen[ridx], j_ovid[ridx]))
+            _mark(f"retry round ({n_r} windows, {int(acc2.sum())} "
+                  "recovered)")
+
+        # window-SEAM insertion evidence (mirrors WindowBatcher.
+        # _inject_seams; applied to the L4 accumulators after the cis
+        # classification below)
+        seam = None
+        if W >= 2:
+            same = (j_ovid[1:] == j_ovid[:-1]) & \
+                (j_ws[1:] == j_ws[:-1] + self.wl) & w_ok[1:] & w_ok[:-1]
+            cw = np.flatnonzero(same)
+            if len(cw):
+                y0f = tws_fin - e
+                lend = y0f[cw] + yn_all[cw]
+                rstart = y0f[cw + 1] + ys_all[cw + 1]
+                gap = rstart - lend
+                k = (gap >= 1) & (gap <= 8)
+                cw, lend, gap = cw[k], lend[k], gap[k]
+                rows_s, cols_s, base_s, len_s, ov_s = [], [], [], [], []
+                t_or_cache: Dict[Tuple[int, int], np.ndarray] = {}
+                for w, lo, g in zip(cw.tolist(), lend.tolist(),
+                                    gap.tolist()):
+                    key = (int(j_trid[w]), int(j_trev[w]))
+                    t = t_or_cache.get(key)
+                    if t is None:
+                        t = self.store.get_codes(key[0])
+                        if key[1]:
+                            t = revcomp_codes(t)
+                        t_or_cache[key] = t
+                    seg = t[lo:lo + g]
+                    if len(seg) < g or (seg != seg[0]).any() or \
+                            seg[0] > 3:
+                        continue
+                    rows_s.append(int(j_qrow[w]))
+                    cols_s.append(int(j_ws[w]) + self.wl - 1)
+                    base_s.append(int(seg[0]))
+                    len_s.append(int(g))
+                    ov_s.append(int(j_ovid[w]))
+                if rows_s:
+                    seam = tuple(self._t(np.asarray(a, np.int64))
+                                 for a in (rows_s, cols_s, base_s,
+                                           len_s, ov_s))
+
+        # per-overlap stats
+        win_tot = np.concatenate(win_tot_all).astype(np.int64)
+        win_ok = np.zeros(n_ov_tot, np.int64)
+        np.add.at(win_ok, j_ovid[w_ok], 1)
+        ov_err = np.zeros(n_ov_tot, np.int64)
+        np.add.at(ov_err, j_ovid[w_ok], err_all[w_ok])
+        # per-WINDOW evidence (~wcns_gen, ecovlp.cpp:2293): any aligned
+        # window qualifies the overlap; failed windows' slots are
+        # already excluded by ok_slot
+        usable_ov = win_ok > 0
+        j_ovid_s = np.concatenate([s[7] for s in segs])
+        w_use = ok_slot & usable_ov[j_ovid_s]
+
+        # precise per-overlap target ranges from first/last accepted window
+        y0 = tws_fin - e
+        ts_ov = np.full(n_ov_tot, -1, np.int64)
+        te_ov = np.full(n_ov_tot, -1, np.int64)
+        okw = np.flatnonzero(w_ok)
+        if len(okw):
+            first_w = np.full(n_ov_tot, W, np.int64)
+            last_w = np.full(n_ov_tot, -1, np.int64)
+            np.minimum.at(first_w, j_ovid[okw], okw)
+            np.maximum.at(last_w, j_ovid[okw], okw)
+            has = last_w >= 0
+            fw = first_w[has]
+            lw = last_w[has]
+            ts_ov[has] = np.maximum(y0[fw] + ys_all[fw], 0)
+            te_ov[has] = y0[lw] + yn_all[lw] - 1
+
+        # device columns per segment, cut into aggregation chunks
+        Rp = R
+        lens_np = np.asarray(self.store.lens, np.int64)
+        steps = []
+        off = 0
+        for tb, ic, ib, qrid, qrow, ws, xlen, ovid in segs:
+            nb = len(qrid)
+            for c0 in range(0, nb, self.chunk):
+                sl = slice(c0, min(nb, c0 + self.chunk))
+                gs = slice(off + sl.start, off + sl.stop)
+                steps.append((tb[sl], ic[sl], ib[sl], self._t(qrow[sl]),
+                              self._t(ws[sl]), self._t(xlen[sl]),
+                              self._t(lens_np[qrid[sl]]),
+                              self._t(w_use[gs], torch.bool),
+                              self._t(ovid[sl])))
+            off += nb
+
+        # ---- L2: raw allele counts ----
+        t_dev = time.time()
+        cnt = torch.zeros(5 * Rp * L + 1, dtype=torch.int32, device=dev)
+        for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in steps:
+            raw_counts_add(cnt, L, tb, qrow, ws, xlen, qlen_w, use)
+        _mark("L2 raw counts")
+
+        # het detection on the device (ec/phase.het_from_counts, integer
+        # form): only packed het bits + 2-bit alts come back
+        rid_rows = self._t(np.array([rid for rid, _ in read_ovs], np.int64))
+        bank_rows = bank.bank[rid_rows, 0, _PAD_L:_PAD_L + L].contiguous()
+        qlen_rows = bank.lens[rid_rows]
+        het_d, alt_d, het_pk, het_cnt = het_planes(
+            cnt[:-1].view(5, Rp, L), bank_rows, qlen_rows)
+        del cnt
+
+        # ---- L3: per-overlap het agreement -> cis/trans ----
+        n_same = torch.zeros(n_ov_tot + 1, dtype=torch.int32, device=dev)
+        n_flip = torch.zeros_like(n_same)
+        for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in steps:
+            het_agree_add(n_same, n_flip, bank_rows, alt_d, het_d, tb, qrow,
+                          ws, xlen, qlen_w, use, ov)
+        ov_qrow = np.zeros(n_ov_tot, np.int64)
+        for rid, ov in read_ovs:
+            b = ov_base[rid]
+            ov_qrow[b:b + len(ov)] = row_of[rid]
+        is_match_d = classify(n_same[:-1], n_flip[:-1], het_cnt,
+                              self._t(ov_qrow), self._t(usable_ov,
+                                                        torch.bool))
+        _mark("L3 + classify")
+
+        # ---- L4: cis-only votes + insertion aggregates ----
+        RL = Rp * L
+        votes = torch.zeros(5 * RL + 1, dtype=torch.int32, device=dev)
+        ins_tot = torch.zeros(RL + 1, dtype=torch.int32, device=dev)
+        ins_bc = torch.zeros(4 * RL + 1, dtype=torch.int32, device=dev)
+        ins_lc = torch.zeros(9 * RL + 1, dtype=torch.int32, device=dev)
+        for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in steps:
+            cis_votes_add(votes, ins_tot, ins_bc, ins_lc, L, tb, ic, ib,
+                          qrow, ws, xlen, qlen_w,
+                          cis_mask(use, ov, is_match_d))
+        if seam is not None:
+            seam_add(ins_tot, ins_bc, ins_lc, Rp, L, *seam, is_match_d)
+        del steps, segs, tb1, ic1, ib1
+        # ---- L5: consensus decisions + ambiguity mask on the device ----
+        subw_pk, ins_pk, ib_pk, il_pk, amb_pk = decide_planes(
+            votes[:-1].view(5, Rp, L), ins_tot[:-1].view(Rp, L),
+            ins_bc[:-1].view(4, Rp, L), ins_lc[:-1].view(9, Rp, L), het_d,
+            bank_rows, qlen_rows)
+        (het_pk_h, ismatch_h, subw_h, ins_h, ib_h, il_h, amb_h) = (
+            t.cpu().numpy() for t in (het_pk, is_match_d, subw_pk, ins_pk,
+                                      ib_pk, il_pk, amb_pk))
+        is_match_all = ismatch_h[:n_ov_tot]
+        dev_s["vote_s"] = time.time() - t_dev
+        het_bits = _unpack_bits(het_pk_h, L)
+        subw_all = _unpack4(subw_h, L)
+        ins_all = _unpack_bits(ins_h, L)
+        ib_all = _unpack2(ib_h, L)
+        il_all = _unpack4(il_h, L)
+        amb_all = _unpack_bits(amb_h, L)
+        _mark("L4+L5 synced")
+
+        # ---- package per read ----
+        out: Dict[int, ReadECOut] = {}
+        cns_in: Dict[int, tuple] = {}
+        for rid, ov in read_ovs:
+            b = ov_base[rid]
+            n = len(ov)
+            sl = slice(b, b + n)
+            row = row_of[rid]
+            hs = np.flatnonzero(het_bits[row])
+            out[rid] = ReadECOut(
+                ov, is_match_all[sl], win_tot[sl], win_ok[sl], ov_err[sl],
+                ts_ov[sl], te_ov[sl], hs)
+            qlen = int(self.store.lens[rid])
+            cns_in[rid] = (subw_all[row, :qlen], ins_all[row, :qlen],
+                           ib_all[row, :qlen], il_all[row, :qlen],
+                           amb_all[row, :qlen])
+        for k, v in dev_s.items():
+            STATS[k] += v
+        STATS["host_s"] += time.time() - _t0 - sum(dev_s.values())
+        return out, cns_in

@@ -1,0 +1,855 @@
+"""Native C++ host kernels (ctypes), built on demand with graceful
+fallback to the numpy/python implementations."""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from typing import Optional
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "src", "hifiasm_native.cpp")
+# built libraries go to the gitignored build/ beside the package
+_BUILD = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
+                      "build", "native")
+_SO = os.path.join(_BUILD, "_hifiasm_native.so")
+
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+BUILD_LOG = ""          # why the last build failed (compiler output)
+
+
+def _build() -> bool:
+    global BUILD_LOG
+    try:
+        src_m = os.path.getmtime(_SRC)
+        os.makedirs(_BUILD, exist_ok=True)
+        if os.path.exists(_SO) and os.path.getmtime(_SO) >= src_m:
+            return True
+        # build to a private name, then rename: concurrent test workers
+        # never load a half-written library
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        r = subprocess.run(
+            ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+             "-o", tmp, _SRC],
+            capture_output=True, timeout=120)
+        if r.returncode != 0 or not os.path.exists(tmp):
+            BUILD_LOG = r.stderr.decode(errors="replace")
+            return False
+        os.replace(tmp, _SO)
+        return True
+    except Exception as ex:
+        BUILD_LOG = repr(ex)
+        return False
+
+
+_MEMARENA_SRC = os.path.join(_DIR, "src", "memarena.c")
+_MEMARENA_SO = os.path.join(_BUILD, "_memarena.so")
+_memarena_installed = False
+
+
+def install_memarena() -> bool:
+    """Route large numpy allocations to MAP_SHARED mmap chunks.
+
+    This kernel write-faults MAP_PRIVATE anonymous memory (glibc's
+    backing for every big malloc) at ~20-40 MB/s but MAP_SHARED at
+    >1 GB/s, so fresh numpy buffers dominate small-run wall-clock.
+    Builds + imports the _memarena extension on first call; safe no-op
+    on failure. Returns True when the handler is active."""
+    global _memarena_installed
+    if _memarena_installed:
+        return True
+    try:
+        import sysconfig
+
+        import numpy as _np
+        src_m = os.path.getmtime(_MEMARENA_SRC)
+        os.makedirs(_BUILD, exist_ok=True)
+        if not (os.path.exists(_MEMARENA_SO)
+                and os.path.getmtime(_MEMARENA_SO) >= src_m):
+            r = subprocess.run(
+                ["gcc", "-O2", "-shared", "-fPIC",
+                 f"-I{sysconfig.get_paths()['include']}",
+                 f"-I{_np.get_include()}",
+                 "-o", _MEMARENA_SO, _MEMARENA_SRC],
+                capture_output=True, timeout=120)
+            if r.returncode != 0 or not os.path.exists(_MEMARENA_SO):
+                return False
+        import importlib.util
+        from importlib.machinery import ExtensionFileLoader
+        loader = ExtensionFileLoader("_memarena", _MEMARENA_SO)
+        spec = importlib.util.spec_from_file_location(
+            "_memarena", _MEMARENA_SO, loader=loader)
+        mod = importlib.util.module_from_spec(spec)
+        loader.exec_module(mod)
+        mod.install()
+        _memarena_installed = True
+        return True
+    except Exception:
+        return False
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    if not _build():
+        return None
+    # The fused EC pipeline overlaps an OMP compute call (worker thread)
+    # with numpy batch prep (main thread) on the same cores; libgomp's
+    # default active spin-wait between parallel regions then burns a
+    # core busy-waiting and slows the EC pass ~4x (measured: 5.6 s ->
+    # 1.3 s per pass on the 24 Mb bench workload).  Must be set before
+    # libgomp initializes, i.e. before the first dlopen of the kernels.
+    os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
+    lib = ctypes.CDLL(_SO)
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.ht_trans_reduce.restype = ctypes.c_int64
+    lib.ht_trans_reduce.argtypes = [
+        ctypes.c_int64, i64p, i64p, u32p, i64p, u8p, u8p, ctypes.c_int64]
+    lib.ht_coverage_sub.restype = None
+    lib.ht_coverage_sub.argtypes = [
+        ctypes.c_int64, i64p, i64p, ctypes.c_int64, i64p, i64p]
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.ht_banded_batch.restype = ctypes.c_int64
+    lib.ht_banded_batch.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        u8p, i64p, u8p, i64p, ctypes.c_int64,
+        i32p, i32p, i32p, u8p, u8p, u8p, ctypes.c_int32]
+    lib.ht_chain_dp.restype = ctypes.c_int64
+    lib.ht_chain_dp.argtypes = [
+        ctypes.c_int64, i64p, i64p, i64p, i64p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        i64p, i64p, i64p]
+    lib.ht_banded_jobs.restype = ctypes.c_int64
+    lib.ht_banded_jobs.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        u8p, i64p, i64p, i64p, i64p, i64p, u8p, i64p, i64p,
+        i32p, i32p, i32p, u8p, u8p, u8p, ctypes.c_int32]
+    u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+    u32cp = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    lib.ht_sketch_many.restype = ctypes.c_int64
+    lib.ht_sketch_many.argtypes = [
+        u8p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        u64p, u16p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        i64p, u64p, i64p, u8p, i64p, u32cp, i64p]
+    lib.ht_collect_anchors.restype = ctypes.c_int64
+    lib.ht_collect_anchors.argtypes = [
+        ctypes.c_int64, i64p, u64p, i64p, u8p, i64p, i64p,
+        u64p, i64p, i32p, ctypes.c_int64,
+        u32p, u32p, u8p, u16p, i64p,
+        ctypes.c_int64, ctypes.c_int64,
+        i64p, u32p, u8p, i64p, i64p, i64p, i64p, i64p]
+    lib.ht_ec_read.restype = ctypes.c_int64
+    lib.ht_ec_read.argtypes = [
+        ctypes.c_int64, i64p, i64p, u8p, u8p, u8p, u8p,
+        ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_int32,
+        u8p, i64p, u8p, ctypes.c_int64, i64p, i64p,
+        i64p, i64p, ctypes.c_int64, i64p]
+    lib.ht_ec_reads.restype = None
+    lib.ht_ec_reads.argtypes = [
+        ctypes.c_int64, i64p, i64p, i64p, i64p, u8p, u8p, u8p, u8p,
+        i64p, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+        ctypes.c_int32, u8p, i64p, u8p, i64p, i64p, i64p,
+        i64p, i64p, ctypes.c_int64, i64p]
+    lib.ht_count_kmers.restype = ctypes.c_int64
+    lib.ht_count_kmers.argtypes = [
+        u8p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        u64p, u32cp]
+    lib.ht_count_kmers_bloom.restype = ctypes.c_int64
+    lib.ht_count_kmers_bloom.argtypes = [
+        u8p, i64p, ctypes.c_int64, ctypes.c_int64, u64p,
+        ctypes.c_int64, u64p]
+    lib.ht_unique_u64.restype = ctypes.c_int64
+    lib.ht_unique_u64.argtypes = [u64p, ctypes.c_int64, u32cp]
+    lib.ht_set_threads.restype = None
+    lib.ht_set_threads.argtypes = [ctypes.c_int32]
+    lib.ht_finish_regions.restype = None
+    lib.ht_finish_regions.argtypes = [
+        ctypes.c_int64, i64p, i64p, i64p, i64p, i64p, u8p, i64p,
+        ctypes.c_int64, i64p, i64p]
+    lib.ht_ec_batch.restype = ctypes.c_int64
+    lib.ht_ec_batch.argtypes = [
+        ctypes.c_int64, i64p, u8p, i64p, u8p, i64p,
+        i64p, u8p, i64p, i64p, i64p, i64p, i64p, i64p,
+        i64p, u8p, u8p, u8p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_int32,
+        i32p, i32p, i64p, i64p, i64p, u8p,
+        i64p, u8p, i64p, i64p, i64p,
+        i64p, i64p, ctypes.c_int64, i64p]
+    lib.ht_chain_groups.restype = ctypes.c_int64
+    lib.ht_chain_groups.argtypes = [
+        ctypes.c_int64, i64p, i64p, i64p, i64p, i64p, i64p, i64p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        i64p, i64p, i64p, i64p, i64p]
+    lib.ht_hic_map.restype = None
+    lib.ht_hic_map.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        u64p, i32p, i64p, ctypes.c_int64, i64p, ctypes.c_double,
+        i64p, i64p, i64p]
+    _lib = lib
+    return _lib
+
+
+def set_threads(n: int) -> None:
+    """Bound the OpenMP worker count of every native kernel (-t)."""
+    lib = get_lib()
+    if lib is not None and n > 0:
+        lib.ht_set_threads(n)
+
+
+def banded_batch_native(x, xlen, y, ylen, e: int, traceback: bool = True):
+    """Native banded Myers engine (engine-API compatible); None if no lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from hifiasm_tpu_torch.ops.banded_batch import BatchAlign
+
+    B, XL = x.shape
+    YL = y.shape[1]
+    err = np.zeros(B, np.int32)
+    ys = np.zeros(B, np.int32)
+    yn = np.zeros(B, np.int32)
+    tb = np.empty(B * XL, np.uint8)
+    ic = np.empty(B * XL, np.uint8)
+    ib = np.empty(B * XL, np.uint8)
+    rc = lib.ht_banded_batch(
+        B, XL, YL, np.ascontiguousarray(x, np.uint8),
+        np.ascontiguousarray(xlen, np.int64),
+        np.ascontiguousarray(y, np.uint8),
+        np.ascontiguousarray(ylen, np.int64), e, err, ys, yn, tb, ic, ib,
+        1 if traceback else 0)
+    if rc != 0:
+        raise AssertionError(f"native traceback stuck at problem {-rc - 1}")
+    if not traceback:
+        tb[:] = 5
+        ic[:] = 0
+        ib[:] = 0
+    return BatchAlign(err, ys, yn, tb.reshape(B, XL), ic.reshape(B, XL),
+                      ib.reshape(B, XL))
+
+
+def banded_jobs_native(flat, x_off, xlen, t_base, t_ws, t_len, last,
+                       dst_base, acc_thre, tb_arena, ic_arena, ib_arena,
+                       XL: int, e: int, traceback: bool = True):
+    """Zero-copy window-job alignment; ACCEPTED windows scatter their
+    traceback straight into the pre-initialised CSR arenas. Returns
+    (err, y_start, y_end); err == -1 covers both failure and rejection."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(x_off)
+    err = np.zeros(n, np.int32)
+    ys = np.zeros(n, np.int32)
+    yn = np.zeros(n, np.int32)
+    rc = lib.ht_banded_jobs(
+        n, XL, e, np.ascontiguousarray(flat, np.uint8),
+        np.ascontiguousarray(x_off, np.int64),
+        np.ascontiguousarray(xlen, np.int64),
+        np.ascontiguousarray(t_base, np.int64),
+        np.ascontiguousarray(t_ws, np.int64),
+        np.ascontiguousarray(t_len, np.int64),
+        np.ascontiguousarray(last, np.uint8),
+        np.ascontiguousarray(dst_base, np.int64),
+        np.ascontiguousarray(acc_thre, np.int64),
+        err, ys, yn, tb_arena, ic_arena, ib_arena,
+        1 if traceback else 0)
+    if rc != 0:
+        raise AssertionError(f"native traceback stuck at job {-rc - 1}")
+    return err, ys, yn
+
+
+def chain_dp_native(self_off, t_off, span, weight, xl: int, yl: int, p):
+    """Native chain DP for one anchor group -> (f, pre, quick) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(self_off)
+    f = np.zeros(n, np.int64)
+    pre = np.zeros(n, np.int64)
+    t = np.zeros(max(n, 1), np.int64)
+    quick = lib.ht_chain_dp(
+        n, np.ascontiguousarray(self_off, np.int64),
+        np.ascontiguousarray(t_off, np.int64),
+        np.ascontiguousarray(span, np.int64),
+        np.ascontiguousarray(weight, np.int64),
+        xl, yl, p.max_iter, p.max_skip, p.max_dis,
+        1 if p.quick_check else 0,
+        p.bw_q16, p.pg_q16, p.pskip_q16, p.invbw_q4,
+        f, pre, t)
+    return f, pre, bool(quick)
+
+
+def chain_groups_native(off, self_off, t_off, span, weight, xl_g, yl_g, p):
+    """All-groups chain DP + traceback + mcopy in one native call.
+
+    Returns (chain_cnt [G], score [G, m], start [G, m], hits [G, m],
+    hit_idx flat) or None. hit_idx holds group-local anchor indices.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    G = len(off) - 1
+    m = p.mcopy_num
+    total = int(off[-1])
+    cnt = np.zeros(G, np.int64)
+    score = np.zeros(G * m, np.int64)
+    start = np.zeros(G * m, np.int64)
+    hits = np.zeros(G * m, np.int64)
+    hit_idx = np.zeros(max(total, 1), np.int64)
+    lib.ht_chain_groups(
+        G, np.ascontiguousarray(off, np.int64),
+        np.ascontiguousarray(self_off, np.int64),
+        np.ascontiguousarray(t_off, np.int64),
+        np.ascontiguousarray(span, np.int64),
+        np.ascontiguousarray(weight, np.int64),
+        np.ascontiguousarray(xl_g, np.int64),
+        np.ascontiguousarray(yl_g, np.int64),
+        p.max_iter, p.max_skip, p.max_dis, 1 if p.quick_check else 0,
+        p.bw_q16, p.pg_q16, p.pskip_q16, p.invbw_q4,
+        m, p.mcopy_q16, p.mcopy_khit_cut,
+        cnt, score, start, hits, hit_idx)
+    return (cnt, score.reshape(G, m), start.reshape(G, m),
+            hits.reshape(G, m), hit_idx)
+
+
+def sketch_many_native(codes_list, k: int, w: int, ft=None,
+                       sample_dist: int = 500, is_unique: bool = False):
+    """Native whole-batch HPC minimizer sketch; returns list[Minimizers]
+    or None (unavailable / overflow)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from hifiasm_tpu_torch.ops.sketch import Minimizers
+
+    n = len(codes_list)
+    bounds = np.zeros(n + 1, np.int64)
+    for i, c in enumerate(codes_list):
+        bounds[i + 1] = bounds[i] + len(c)
+    flat = np.concatenate(codes_list) if n else np.zeros(0, np.uint8)
+    caps = np.array([max(64, min(len(c) + 2, 6 * len(c) // max(w, 1) + 64))
+                     for c in codes_list], np.int64)
+    out_off = np.zeros(n + 1, np.int64)
+    np.cumsum(caps, out=out_off[1:])
+    tot = int(out_off[-1])
+    oh = np.empty(tot, np.uint64)
+    op = np.empty(tot, np.int64)
+    orv = np.empty(tot, np.uint8)
+    osp = np.empty(tot, np.int64)
+    oc = np.empty(tot, np.uint32)
+    on = np.zeros(n, np.int64)
+    if ft is not None and len(ft):
+        fh = np.ascontiguousarray(ft.hashes, np.uint64)
+        fc = np.ascontiguousarray(ft.counts, np.uint16)
+        nft = len(fh)
+    else:
+        fh = np.zeros(1, np.uint64)
+        fc = np.zeros(1, np.uint16)
+        nft = 0
+    rc = lib.ht_sketch_many(
+        np.ascontiguousarray(flat, np.uint8), bounds, n, k, w,
+        fh, fc, nft, sample_dist, 1 if is_unique else 0,
+        out_off, oh, op, orv, osp, oc, on)
+    if rc != 0:
+        return None
+    out = []
+    for i in range(n):
+        s = int(out_off[i])
+        e = s + int(on[i])
+        # views into the batch buffers (alive for the round; avoids
+        # 5 small copies per read)
+        out.append(Minimizers(oh[s:e], op[s:e], orv[s:e], osp[s:e],
+                              oc[s:e]))
+    return out
+
+
+def count_kmers_native(codes_list, k: int, chunk_bases: int = 32_000_000):
+    """Fused HPC k-mer count: hash + parallel sort + unique in native code.
+
+    Returns (sorted unique uint64 hashes, uint32 counts) over all complete
+    canonical HPC k-mers, or None if the library is unavailable. Same
+    k-mer set as ops/sketch.all_kmers_read (~ha_ft_gen, htab.cpp:1136).
+
+    Processes the reads in ~chunk_bases slices with one reused scratch
+    buffer (first-touch page faults on an input-sized buffer dominate the
+    small-genome case otherwise) and merges per-chunk sorted tables
+    LSM-style, so peak memory tracks the distinct-k-mer table, not total
+    occurrences.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(codes_list)
+    hbuf = cbuf = None
+    stack = []                          # [(h, c)] pairwise-merge stack
+
+    def _push(h, c):
+        stack.append((h, c))
+        while len(stack) >= 2 and \
+                len(stack[-1][0]) * 2 >= len(stack[-2][0]):
+            hb, cb = stack.pop()
+            ha, ca = stack.pop()
+            stack.append(_merge_sorted_counts(ha, ca, hb, cb))
+
+    c0 = 0
+    while c0 < n:
+        c1, bases = c0, 0
+        while c1 < n and bases < chunk_bases:
+            bases += len(codes_list[c1])
+            c1 += 1
+        chunk = codes_list[c0:c1]
+        bounds = np.zeros(len(chunk) + 1, np.int64)
+        for i, c in enumerate(chunk):
+            bounds[i + 1] = bounds[i] + len(c)
+        flat = np.concatenate(chunk) if chunk else np.zeros(0, np.uint8)
+        tot = max(int(bounds[-1]), 1)
+        if hbuf is None or len(hbuf) < tot:
+            hbuf = np.empty(tot, np.uint64)
+            cbuf = np.empty(tot, np.uint32)
+        ne = lib.ht_count_kmers(
+            np.ascontiguousarray(flat, np.uint8), bounds, len(chunk), k,
+            0, hbuf, cbuf)
+        em = hbuf[:ne]
+        em.sort()                       # numpy SIMD (avx) sort
+        nu = lib.ht_unique_u64(em, ne, cbuf)
+        _push(em[:nu].copy(), cbuf[:nu].copy())
+        c0 = c1
+    if len(stack) == 1:                 # single chunk: no merge, no copy
+        h, c32 = stack[0]
+        return h, c32.astype(np.uint32, copy=False)
+    h = np.zeros(0, np.uint64)
+    c = np.zeros(0, np.int64)
+    while stack:
+        hb, cb = stack.pop()
+        h, c = _merge_sorted_counts(h, c, hb, cb)
+    return h, np.minimum(c, 0xFFFFFFFF).astype(np.uint32)
+
+
+def _merge_sorted_counts(ha, ca, hb, cb):
+    """Merge two sorted (hash, count) tables, summing shared keys."""
+    if len(ha) == 0:
+        return hb, cb.astype(np.int64)
+    if len(hb) == 0:
+        return ha, ca.astype(np.int64)
+    h = np.concatenate([ha, hb])
+    c = np.concatenate([ca.astype(np.int64), cb.astype(np.int64)])
+    order = np.argsort(h, kind="stable")
+    h, c = h[order], c[order]
+    new = np.empty(len(h), bool)
+    new[0] = True
+    np.not_equal(h[1:], h[:-1], out=new[1:])
+    starts = np.flatnonzero(new)
+    csum = np.add.reduceat(c, starts)
+    return h[starts], csum
+
+
+def count_kmers_bloom_native(codes_list, k: int, bf_bits: int,
+                             chunk_bases: int = 32_000_000):
+    """Bloom-prefiltered HPC k-mer counting (~ha_ft_gen's -f pass,
+    htab.cpp:74-116 + 1136): singleton k-mers never enter the
+    sort/count stage, so peak memory tracks distinct NON-singleton
+    k-mers instead of total occurrences. Per-chunk (hash, count)
+    tables are merged pairwise (LSM-style) to keep intermediates
+    ~2x the final table. Returned counts are occurrences + 1
+    (the first, bloom-swallowed occurrence restored), saturating at
+    uint32. Returns (sorted unique hashes, uint32 counts) or None.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    bf_bits = max(bf_bits, 12)
+    bloom = np.zeros(1 << max(bf_bits - 6, 9), np.uint64)
+    stack = []                          # [(h, c)] pairwise-merge stack
+
+    def _push(h, c):
+        stack.append((h, c))
+        while len(stack) >= 2 and \
+                len(stack[-1][0]) * 2 >= len(stack[-2][0]):
+            hb, cb = stack.pop()
+            ha, ca = stack.pop()
+            stack.append(_merge_sorted_counts(ha, ca, hb, cb))
+
+    c0, n = 0, len(codes_list)
+    while c0 < n:
+        c1, bases = c0, 0
+        while c1 < n and bases < chunk_bases:
+            bases += len(codes_list[c1])
+            c1 += 1
+        chunk = codes_list[c0:c1]
+        bounds = np.zeros(len(chunk) + 1, np.int64)
+        for i, s in enumerate(chunk):
+            bounds[i + 1] = bounds[i] + len(s)
+        flat = np.concatenate(chunk) if chunk else np.zeros(0, np.uint8)
+        hbuf = np.empty(max(int(bounds[-1]), 1), np.uint64)
+        ne = lib.ht_count_kmers_bloom(
+            np.ascontiguousarray(flat, np.uint8), bounds, len(chunk), k,
+            bloom, max(bf_bits - 6, 9), hbuf)
+        em = hbuf[:ne]                   # partition-ordered, not sorted
+        em.sort()                        # numpy SIMD sort
+        cb = np.empty(max(ne, 1), np.uint32)
+        nu = lib.ht_unique_u64(em, ne, cb)
+        _push(em[:nu].copy(), cb[:nu].copy())
+        c0 = c1
+    h = np.zeros(0, np.uint64)
+    c = np.zeros(0, np.int64)
+    while stack:
+        hb, cb = stack.pop()
+        h, c = _merge_sorted_counts(h, c, hb, cb)
+    c = np.minimum(c + 1, 0xFFFFFFFF).astype(np.uint32)
+    return h, c
+
+
+def collect_anchors_native(mzs, pt, rids, tlens, hom_cov: int):
+    """Native anchor collection for many reads -> list[Anchors] or None."""
+    lib = get_lib()
+    if lib is None or pt.n_distinct == 0:
+        return None
+    from hifiasm_tpu_torch.overlap.anchors import HA_KMER_GOOD_RATIO, Anchors
+
+    max_cnt = max(int(hom_cov * (2.0 - HA_KMER_GOOD_RATIO)), 2)
+    min_cnt = max(int(hom_cov * HA_KMER_GOOD_RATIO), 2)
+    n = len(rids)
+    mz_off = np.zeros(n + 1, np.int64)
+    for i, rid in enumerate(rids):
+        mz_off[i + 1] = mz_off[i] + len(mzs[rid])
+    mh = np.concatenate([mzs[r].hash for r in rids]) if n else \
+        np.zeros(0, np.uint64)
+    mp = np.concatenate([mzs[r].pos.astype(np.int64) for r in rids]) \
+        if n else np.zeros(0, np.int64)
+    mr = np.concatenate([mzs[r].rev for r in rids]) if n else \
+        np.zeros(0, np.uint8)
+    ms = np.concatenate([mzs[r].span.astype(np.int64) for r in rids]) \
+        if n else np.zeros(0, np.int64)
+    # per-read capacity = sum of posting counts of its minimizers
+    cnts = pt.cnt(mh).astype(np.int64)
+    cs = np.zeros(len(cnts) + 1, np.int64)
+    np.cumsum(cnts, out=cs[1:])
+    caps = cs[mz_off[1:]] - cs[mz_off[:-1]]
+    out_off = np.zeros(n + 1, np.int64)
+    np.cumsum(caps, out=out_off[1:])
+    tot = int(out_off[-1])
+    o_tid = np.empty(max(tot, 1), np.uint32)
+    o_rev = np.empty(max(tot, 1), np.uint8)
+    o_qp = np.empty(max(tot, 1), np.int64)
+    o_to = np.empty(max(tot, 1), np.int64)
+    o_sp = np.empty(max(tot, 1), np.int64)
+    o_w = np.empty(max(tot, 1), np.int64)
+    o_n = np.zeros(n, np.int64)
+    rc = lib.ht_collect_anchors(
+        n, mz_off, np.ascontiguousarray(mh, np.uint64),
+        np.ascontiguousarray(mp), np.ascontiguousarray(mr),
+        np.ascontiguousarray(ms),
+        np.ascontiguousarray(np.asarray(rids, np.int64)),
+        np.ascontiguousarray(pt.hashes, np.uint64),
+        np.ascontiguousarray(pt.start, np.int64),
+        np.ascontiguousarray(pt.count, np.int32), pt.n_distinct,
+        np.ascontiguousarray(pt.rid, np.uint32),
+        np.ascontiguousarray(pt.pos, np.uint32),
+        np.ascontiguousarray(pt.rev, np.uint8),
+        np.ascontiguousarray(pt.span, np.uint16),
+        np.ascontiguousarray(tlens, np.int64),
+        min_cnt, max_cnt, out_off,
+        o_tid, o_rev, o_qp, o_to, o_sp, o_w, o_n)
+    if rc != 0:
+        return None
+    out = []
+    for i in range(n):
+        s = int(out_off[i])
+        e = s + int(o_n[i])
+        out.append(Anchors(o_tid[s:e], o_rev[s:e], o_qp[s:e],
+                           o_to[s:e], o_sp[s:e], o_w[s:e]))
+    return out
+
+
+ED_STRIDE = 1024                       # edit-trace events per read (cap)
+
+
+def ec_read_native(tbs, q, do_consensus: bool = True,
+                   min_het_occ: int = 2, occ_tot: int = 3,
+                   occ_exact: float = 0.500001):
+    """Per-read phase + consensus in C; returns (is_match, n_het,
+    corrected_seq or None, n_edits, (ed_pos, ed_delta)) or None when
+    unavailable / overflow."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_ov = len(tbs.win_tot)
+    usable = (tbs.win_ok > 0).astype(np.uint8)   # per-window evidence
+    is_match = np.zeros(n_ov, np.uint8)
+    n_het = np.zeros(1, np.int64)
+    qlen = len(q)
+    cap = qlen * 2 + 64
+    out_seq = np.empty(cap, np.uint8)
+    out_len = np.zeros(1, np.int64)
+    n_edits = np.zeros(1, np.int64)
+    ed_pos = np.empty(ED_STRIDE, np.int64)
+    ed_delta = np.empty(ED_STRIDE, np.int64)
+    ed_n = np.zeros(1, np.int64)
+    rc = lib.ht_ec_read(
+        n_ov, np.ascontiguousarray(tbs.off, np.int64),
+        np.ascontiguousarray(tbs.x_s, np.int64),
+        tbs.tb, tbs.ins_cnt, tbs.ins_base, usable,
+        qlen, np.ascontiguousarray(q, np.uint8),
+        min_het_occ, occ_tot, occ_exact, 1 if do_consensus else 0,
+        is_match, n_het, out_seq, cap, out_len, n_edits,
+        ed_pos, ed_delta, ED_STRIDE, ed_n)
+    if rc != 0:
+        return None                    # overflow: caller uses python path
+    seq = out_seq[:int(out_len[0])].copy() if do_consensus else None
+    ne = int(ed_n[0])
+    return (is_match, int(n_het[0]), seq, int(n_edits[0]),
+            (ed_pos[:ne].copy(), ed_delta[:ne].copy()))
+
+
+def ec_reads_native(items, do_consensus: bool = True,
+                    min_het_occ: int = 2, occ_tot: int = 3,
+                    occ_exact: float = 0.500001):
+    """Batched phase + consensus over a flush's reads in ONE native call
+    (OMP-parallel across reads; ~cal_ec_r's kt_for, ecovlp.cpp:6268).
+
+    items: list of (q, tbs); every tbs must carry the SAME shared flush
+    arena (set by WindowBatcher._flush_native). Returns a per-read list of
+    (is_match, n_het, seq|None, n_edits, (ed_pos, ed_delta)), with None
+    entries on per-read overflow, or None when unavailable (caller uses
+    the per-read path).
+    """
+    lib = get_lib()
+    if lib is None or not items:
+        return None
+    arena = getattr(items[0][1], "arena", None)
+    if arena is None:
+        return None
+    tb_a, ic_a, ib_a = arena
+    for _, t in items:
+        a = getattr(t, "arena", None)
+        if a is None or a[0] is not tb_a:
+            return None
+    R = len(items)
+    n_ovs = np.array([len(t.win_tot) for _, t in items], np.int64)
+    r_ov_off = np.zeros(R + 1, np.int64)
+    np.cumsum(n_ovs, out=r_ov_off[1:])
+    off_idx = np.zeros(R, np.int64)
+    off_parts = []
+    pos = 0
+    for i, (_, t) in enumerate(items):
+        off_idx[i] = pos
+        off_parts.append(np.asarray(t.off, np.int64) + t.arena_base)
+        pos += len(t.off)
+    off_cat = np.ascontiguousarray(np.concatenate(off_parts))
+    x_s = np.ascontiguousarray(np.concatenate(
+        [np.asarray(t.x_s, np.int64) for _, t in items]))
+    usable = np.ascontiguousarray(np.concatenate(
+        [(t.win_ok > 0).astype(np.uint8) for _, t in items]))
+    q_off = np.zeros(R + 1, np.int64)
+    for i, (q, _) in enumerate(items):
+        q_off[i + 1] = q_off[i] + len(q)
+    qcat = np.concatenate(
+        [np.ascontiguousarray(q, np.uint8) for q, _ in items]) \
+        if R else np.zeros(0, np.uint8)
+    caps = np.diff(q_off) * 2 + 64
+    out_off = np.zeros(R + 1, np.int64)
+    np.cumsum(caps, out=out_off[1:])
+    is_match = np.zeros(max(int(r_ov_off[-1]), 1), np.uint8)
+    n_het = np.zeros(R, np.int64)
+    out_seq = np.empty(int(out_off[-1]), np.uint8)
+    out_len = np.zeros(R, np.int64)
+    n_edits = np.zeros(R, np.int64)
+    ed_pos = np.empty(R * ED_STRIDE, np.int64)
+    ed_delta = np.empty(R * ED_STRIDE, np.int64)
+    ed_n = np.zeros(R, np.int64)
+    lib.ht_ec_reads(
+        R, r_ov_off, off_idx, off_cat, x_s, tb_a, ic_a, ib_a, usable,
+        q_off, qcat, min_het_occ, occ_tot, occ_exact,
+        1 if do_consensus else 0,
+        is_match, n_het, out_seq, out_off, out_len, n_edits,
+        ed_pos, ed_delta, ED_STRIDE, ed_n)
+    res = []
+    for r in range(R):
+        if out_len[r] < 0:
+            res.append(None)
+            continue
+        im = is_match[r_ov_off[r]:r_ov_off[r + 1]].copy()
+        seq = out_seq[out_off[r]:out_off[r] + out_len[r]].copy() \
+            if do_consensus else None
+        e0 = r * ED_STRIDE
+        ne = int(ed_n[r])
+        res.append((im, int(n_het[r]), seq, int(n_edits[r]),
+                    (ed_pos[e0:e0 + ne].copy(),
+                     ed_delta[e0:e0 + ne].copy())))
+    return res
+
+
+def finish_regions_native(r_ov_off, score, x_s, x_e, y_id, rev, rlen_of,
+                          max_n_chain: int):
+    """Batched quota+dedup+order over flat overlap columns; returns
+    (kept global indices in final order, new r_ov_off) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    R = len(r_ov_off) - 1
+    n_ov = int(r_ov_off[-1])
+    out_idx = np.zeros(max(n_ov, 1), np.int64)
+    out_cnt = np.zeros(max(R, 1), np.int64)
+    lib.ht_finish_regions(
+        R, np.ascontiguousarray(r_ov_off, np.int64),
+        np.ascontiguousarray(score, np.int64),
+        np.ascontiguousarray(x_s, np.int64),
+        np.ascontiguousarray(x_e, np.int64),
+        np.ascontiguousarray(y_id, np.int64),
+        np.ascontiguousarray(rev, np.uint8),
+        np.ascontiguousarray(rlen_of, np.int64),
+        max_n_chain, out_idx, out_cnt)
+    new_off = np.zeros(R + 1, np.int64)
+    np.cumsum(out_cnt[:R], out=new_off[1:])
+    # compact the per-read slices (kept indices live at each read's o0)
+    seg = np.arange(int(new_off[-1])) - np.repeat(new_off[:-1],
+                                                  out_cnt[:R])
+    src = np.repeat(np.asarray(r_ov_off[:-1], np.int64),
+                    out_cnt[:R]) + seg
+    return out_idx[src], new_off
+
+
+def ec_batch_native(codes_batch, bank_off, bank, ov_cols, cfg_tuple,
+                    do_consensus: bool = True):
+    """Fused per-batch EC stage (ht_ec_batch): window planning + banded
+    alignment + stats + phase + consensus in one native call.
+
+    codes_batch: list of query code arrays (batch reads, in order).
+    bank_off/bank: whole-store flat code bank (current sequences).
+    ov_cols: dict with concatenated per-overlap columns across the batch
+      (r_ov_off [R+1], y_id, rev, x_s, x_e, hit_off, n_hits, hit_self,
+      hit_t) — hit_off is GLOBAL into hit_self/hit_t.
+    cfg_tuple: (wl, e, e_rate, thre_cap, min_het_occ, occ_tot, occ_exact).
+
+    Returns dict with per-overlap (win_tot, win_ok, err, ts, te,
+    is_match) and per-read (n_het, seqs [list|None], n_edits) arrays, or
+    None when the library is unavailable.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    wl, e, e_rate, thre_cap, min_het_occ, occ_tot, occ_exact = cfg_tuple
+    R = len(codes_batch)
+    q_off = np.zeros(R + 1, np.int64)
+    for i, q in enumerate(codes_batch):
+        q_off[i + 1] = q_off[i] + len(q)
+    qcat = np.concatenate(codes_batch) if R else np.zeros(0, np.uint8)
+    r_ov_off = np.ascontiguousarray(ov_cols["r_ov_off"], np.int64)
+    x_s = np.ascontiguousarray(ov_cols["x_s"], np.int64)
+    x_e = np.ascontiguousarray(ov_cols["x_e"], np.int64)
+    n_ov = len(x_s)
+    spans = x_e - x_s + 1
+    arena_off = np.zeros(n_ov + 1, np.int64)
+    np.cumsum(spans, out=arena_off[1:])
+    tot = int(arena_off[-1])
+    # no pre-init: ht_ec_batch fills rejected/clamped spans itself
+    # (thread-parallel, cache-hot) — saves ~100 MB of serial memset per
+    # bench pass
+    tb_a = np.empty(max(tot, 1), np.uint8)
+    ic_a = np.empty(max(tot, 1), np.uint8)
+    ib_a = np.empty(max(tot, 1), np.uint8)
+    win_tot = np.zeros(max(n_ov, 1), np.int32)
+    win_ok = np.zeros(max(n_ov, 1), np.int32)
+    err_sum = np.zeros(max(n_ov, 1), np.int64)
+    ts = np.ascontiguousarray(ov_cols["y_s"], np.int64).copy()
+    te = np.ascontiguousarray(ov_cols["y_e"], np.int64).copy()
+    is_match = np.zeros(max(n_ov, 1), np.uint8)
+    n_het = np.zeros(max(R, 1), np.int64)
+    caps = np.diff(q_off) * 2 + 64
+    out_off = np.zeros(R + 1, np.int64)
+    np.cumsum(caps, out=out_off[1:])
+    out_seq = np.empty(max(int(out_off[-1]), 1), np.uint8)
+    out_len = np.zeros(max(R, 1), np.int64)
+    n_edits = np.zeros(max(R, 1), np.int64)
+    ed_pos = np.empty(max(R, 1) * ED_STRIDE, np.int64)
+    ed_delta = np.empty(max(R, 1) * ED_STRIDE, np.int64)
+    ed_n = np.zeros(max(R, 1), np.int64)
+    rc = lib.ht_ec_batch(
+        R, q_off, np.ascontiguousarray(qcat, np.uint8),
+        np.ascontiguousarray(bank_off, np.int64),
+        np.ascontiguousarray(bank, np.uint8),
+        r_ov_off,
+        np.ascontiguousarray(ov_cols["y_id"], np.int64),
+        np.ascontiguousarray(ov_cols["rev"], np.uint8),
+        x_s, x_e,
+        np.ascontiguousarray(ov_cols["hit_off"], np.int64),
+        np.ascontiguousarray(ov_cols["n_hits"], np.int64),
+        np.ascontiguousarray(ov_cols["hit_self"], np.int64),
+        np.ascontiguousarray(ov_cols["hit_t"], np.int64),
+        arena_off, tb_a, ic_a, ib_a,
+        wl, e, e_rate, thre_cap, min_het_occ, occ_tot, occ_exact,
+        1 if do_consensus else 0,
+        win_tot, win_ok, err_sum, ts, te, is_match,
+        n_het, out_seq, out_off, out_len, n_edits,
+        ed_pos, ed_delta, ED_STRIDE, ed_n)
+    if rc != 0:
+        raise AssertionError(f"native traceback stuck at overlap {-rc-1}")
+    seqs = []
+    edits = []
+    for r in range(R):
+        e0 = r * ED_STRIDE
+        ne = int(ed_n[r])
+        edits.append((ed_pos[e0:e0 + ne].copy(),
+                      ed_delta[e0:e0 + ne].copy()))
+        if out_len[r] < 0:
+            seqs.append(False)            # overflow: caller falls back
+        elif do_consensus and n_edits[r] > 0:
+            seqs.append(out_seq[out_off[r]:out_off[r] + out_len[r]].copy())
+        else:
+            seqs.append(None)
+    return dict(win_tot=win_tot[:n_ov], win_ok=win_ok[:n_ov],
+                err=err_sum[:n_ov], ts=ts[:n_ov], te=te[:n_ov],
+                is_match=is_match[:n_ov], n_het=n_het[:R], seqs=seqs,
+                n_edits=n_edits[:R], edits=edits,
+                arena=(tb_a, ic_a, ib_a), arena_off=arena_off)
+
+
+def trans_reduce(idx_s, idx_n, av, alen, seq_del, del_, fuzz: int
+                 ) -> Optional[int]:
+    """Native transitive reduction; returns n_reduced or None if no lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_vtx = len(idx_s)
+    return int(lib.ht_trans_reduce(
+        n_vtx, np.ascontiguousarray(idx_s, np.int64),
+        np.ascontiguousarray(idx_n, np.int64),
+        np.ascontiguousarray(av, np.uint32),
+        np.ascontiguousarray(alen, np.int64),
+        np.ascontiguousarray(seq_del, np.uint8), del_, fuzz))
+
+
+def hic_map_native(mat, k: int, hashes, uids, poss, pref16,
+                   min_frac: float = 0.7):
+    """Native Hi-C vote mapping (~hic_short_align, hic.cpp:17016);
+    mirrors phasing/hic.py::_vote_place_batch bit-for-bit.  Returns
+    (uid[N], pos[N], cands[N,2,3]) or None if the lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    mat = np.ascontiguousarray(mat, np.uint8)
+    N, L = mat.shape
+    uid_out = np.empty(N, np.int64)
+    pos_out = np.empty(N, np.int64)
+    cands = np.empty((N, 2, 3), np.int64)
+    lib.ht_hic_map(mat, N, L, k,
+                   np.ascontiguousarray(hashes, np.uint64),
+                   np.ascontiguousarray(uids, np.int32),
+                   np.ascontiguousarray(poss, np.int64),
+                   len(hashes), np.ascontiguousarray(pref16, np.int64),
+                   float(min_frac), uid_out, pos_out,
+                   cands.reshape(-1))
+    return uid_out, pos_out, cands

@@ -1,0 +1,140 @@
+"""The port's ``bp`` assembly (hifiasm_tpu_torch.assemble, device="cpu")
+against the JAX package's device-EC path (hifiasm_tpu.assemble with
+align_engine="jax", mesh_devices=1) on the store of
+tests/test_device_frontend.py: bp.p_ctg.gfa, bp.r_utg.gfa, bp.p_utg.gfa
+and p_ctg.fa must be byte-identical — fresh, on a rerun, through the
+port's CLI on a FASTA file, and after resuming from the JAX package's EC
+checkpoint."""
+
+import dataclasses
+import os
+import shutil
+
+import numpy as np
+import pytest
+
+from hifiasm_tpu.assemble import assemble as jax_assemble
+from hifiasm_tpu.config import HifiasmConfig as JConfig
+from hifiasm_tpu.io.binfiles import checkpoint_paths
+from hifiasm_tpu.io.readstore import ReadStore as JStore
+from hifiasm_tpu_torch.assemble import assemble
+from hifiasm_tpu_torch.convert import config_from_reference
+from hifiasm_tpu_torch.io.readstore import ReadStore
+from tests.synth import make_genome, sample_reads
+
+OUTPUTS = ("bp.p_ctg.gfa", "bp.r_utg.gfa", "bp.p_utg.gfa", "p_ctg.fa")
+
+
+def _reads():
+    rng = np.random.default_rng(11)
+    g = make_genome(rng, 12000)
+    reads, _, _ = sample_reads(rng, g, depth=12, read_len=1800,
+                               err_rate=0.004)
+    return [f"r{i}" for i in range(len(reads))], reads
+
+
+def _jcfg(pfx, **kw):
+    kw = {"n_rounds_ec": 1, "ignore_bin": True, **kw}
+    return JConfig(output_prefix=pfx, align_engine="jax", mesh_devices=1,
+                   **kw)
+
+
+def _port_cfg(pfx, **kw):
+    """The port's config, carried over from the JAX package's."""
+    d = dataclasses.asdict(_jcfg(pfx, **kw))
+    return config_from_reference(d)
+
+
+def _read(pfx, suffix):
+    with open(f"{pfx}.{suffix}", "rb") as f:
+        return f.read()
+
+
+def _assert_same(pa, pb):
+    for suffix in OUTPUTS:
+        a, b = _read(pa, suffix), _read(pb, suffix)
+        assert a, f"{pa}.{suffix} is empty"
+        assert a == b, f"{suffix} differs"
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_asm")
+    names, reads = _reads()
+    pj = str(d / "jax")
+    jax_assemble(JStore.from_arrays(names, reads), _jcfg(pj))
+    pt = str(d / "port")
+    assemble(ReadStore.from_arrays(names, reads), _port_cfg(pt),
+             device="cpu")
+    return d, names, reads, pj, pt
+
+
+def test_assemble_matches_jax(runs):
+    _, _, _, pj, pt = runs
+    _assert_same(pj, pt)
+
+
+def test_rerun_identical(runs):
+    d, names, reads, _, pt = runs
+    p2 = str(d / "port2")
+    assemble(ReadStore.from_arrays(names, reads), _port_cfg(p2),
+             device="cpu")
+    _assert_same(pt, p2)
+
+
+def test_cli_matches_jax(runs):
+    from hifiasm_tpu_torch.cli import main
+
+    d, names, reads, pj, _ = runs
+    fa = d / "reads.fa"
+    with open(fa, "w") as f:
+        for n, r in zip(names, reads):
+            f.write(f">{n}\n{''.join('ACGT'[c] for c in r)}\n")
+    pc = str(d / "cli")
+    assert main([str(fa), "-o", pc, "-r", "1", "-i",
+                 "--device", "cpu"]) == 0
+    _assert_same(pj, pc)
+
+
+def test_resume_from_jax_checkpoint(runs):
+    """The port loads the EC checkpoint the JAX package wrote and writes
+    the same GFA as the JAX package resumed from it."""
+    d, names, reads, pj, _ = runs
+    outs = {}
+    for tag in ("jax_resumed", "port_resumed"):
+        p = str(d / tag)
+        for src, dst in zip(checkpoint_paths(pj), checkpoint_paths(p)):
+            shutil.copyfile(src, dst)
+        outs[tag] = p
+    stub = [np.zeros(10, np.uint8)]
+    jax_assemble(JStore.from_arrays(["x"], stub),
+                 _jcfg(outs["jax_resumed"], ignore_bin=False))
+    res = assemble(ReadStore.from_arrays(["x"], stub),
+                   _port_cfg(outs["port_resumed"], ignore_bin=False),
+                   device="cpu")
+    assert res.store.n_reads == len(names)       # the checkpoint's reads
+    _assert_same(outs["jax_resumed"], outs["port_resumed"])
+
+
+def test_unported_branches_raise(tmp_path):
+    names, reads = _reads()
+    store = ReadStore.from_arrays(names[:3], reads[:3])
+    for kw in ({"ul_reads": ["u.fa"]}, {"hic_reads_1": ["a.fq"]},
+               {"fn_bin_yak_pat": "p.yak", "fn_bin_yak_mat": "m.yak"},
+               {"polyploidy": 3}, {"dual_scaf": True}):
+        cfg = _port_cfg(str(tmp_path / "x"), **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            assemble(store, cfg, device="cpu")
+    assert not os.listdir(tmp_path)
+
+
+def test_default_device_raises_without_card(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    names, reads = _reads()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        assemble(ReadStore.from_arrays(names, reads),
+                 _port_cfg(str(tmp_path / "x")))
+    assert not os.listdir(tmp_path)
