@@ -6,17 +6,25 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. card identity (nvidia-smi name and power limit);
-2. build every CUDA kernel and the native host library from the sources
-   in this checkout, side by side, so that no later phase times a build;
+2. build every CUDA kernel (one nvcc per source, all at once) and the
+   native host library from the sources in this checkout, side by side,
+   so that no later phase times a build;
 3. K1 (csrc/banded_tb.cu) against its plain PyTorch version on the card
    at the production shape (XL = 775, e = 31, 65,536 windows with ragged
    lengths and dead lanes): every output bit-equal; times of both;
+3b. K2 (csrc/banded_fwd.cu) on the same windows through its own path,
+   the engine-shaped entry point ``banded_forward`` (no assembly path
+   calls it, as in the JAX package): bit-equal to its plain version and
+   to K1's err and y_end; times of both;
 4. the main path end to end on the card: a synthetic 4 Mb genome, HiFi
    reads of 15 kb at 30x depth with 0.3% error (~120 Mb), the default
-   3 EC rounds through ``assemble(..., device="cuda")``; the kernel
-   launch counts are zeroed just before and read just after;
+   3 EC rounds through ``assemble(..., device="cuda")``, whose EC rounds
+   must take the device front end (anchors, quick chaining and t_ws on
+   the card); the kernel launch counts are zeroed just before and read
+   just after;
 5. card against plain end to end: a small store assembled with
-   device="cuda" and with device="cpu" gives byte-identical outputs.
+   device="cuda" (device front end on) and with device="cpu" and
+   ``device_frontend=False`` gives byte-identical outputs.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -53,6 +61,15 @@ K1_ROW_YLOAD = (20, 0)          # more when y[i + W] enters the band
 K1_MOVE_DIAG = (33, 11)
 K1_MOVE_INS = (51, 14)
 K1_MOVE_DEL = (52, 16)
+# K2's operations, counted the same way in the SASS of csrc/banded_fwd.cu
+# (both dumps: python -m hifiasm_tpu_torch.ops.cuda_build DIR): its
+# forward loop (unrolled x2) per x row, and per window its two free-end
+# loops at e = 31 (62 and 31 steps, unrolled x4; the uniform-datapath
+# UIADD3s left out)
+K2_ROW = (38.5, 3.5)
+K2_ROW_PICK = (7, 2)
+K2_ROW_YLOAD = (20, 0)
+K2_END = (816, 60)
 
 # the production shapes the gate runs at; a cut is recorded in PERF.md
 K1_WINDOWS = 65536          # one DeviceEC chunk of windows
@@ -117,10 +134,12 @@ def _cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def k1_bound(x, xlen, ylen, tb, ic, e: int) -> dict:
-    """What K1 must do for these windows: the bytes it must move (each
-    input read once, each output written once) and the instructions its
-    two loops run, per pipe, for this data."""
+def _work(x, xlen, ylen, e: int, n: dict, per: dict,
+          out_bytes: int) -> dict:
+    """What a banded kernel must do for these windows: the bytes it must
+    move (each input read once, each output written once) and the
+    instructions its loops run, per pipe, for this data.  ``n`` and
+    ``per`` add the kernel's own events to the forward loop's rows."""
     B, XL = x.shape
     YL, W = XL + 2 * e, 2 * e + 1
     xl_eff = np.clip(xlen.astype(np.int64), 0, XL)
@@ -128,29 +147,52 @@ def k1_bound(x, xlen, ylen, tb, ic, e: int) -> dict:
     n = {"rows": int(xl_eff.sum()),
          "rows_pick": int(((x != 0) & in_x).sum()),
          "rows_yload": int(np.clip(np.minimum(ylen.astype(np.int64), YL)
-                                   - W, 0, xl_eff).sum()),
-         "diag": int((tb < 4).sum()),
-         "ins": int(ic.long().sum()),
-         "del": int((tb == 4).sum())}
-    per = {"rows": K1_ROW, "rows_pick": K1_ROW_PICK,
-           "rows_yload": K1_ROW_YLOAD, "diag": K1_MOVE_DIAG,
-           "ins": K1_MOVE_INS, "del": K1_MOVE_DEL}
+                                   - W, 0, xl_eff).sum()), **n}
     n["alu"] = sum(n[k] * per[k][0] for k in per)
     n["fma"] = sum(n[k] * per[k][1] for k in per)
-    n["bytes"] = B * (XL + YL + 8) + B * (12 + 3 * XL)
+    n["bytes"] = B * (XL + YL + 8) + out_bytes
     return n
 
 
-def phase_k1(B: int, seed: int = 7):
+def k1_bound(x, xlen, ylen, tb, ic, e: int) -> dict:
+    """K1's work: forward rows and traceback moves; err, y_start, y_end
+    and the three [B, XL] planes out."""
+    B, XL = x.shape
+    return _work(x, xlen, ylen, e,
+                 {"diag": int((tb < 4).sum()), "ins": int(ic.long().sum()),
+                  "del": int((tb == 4).sum())},
+                 {"rows": K1_ROW, "rows_pick": K1_ROW_PICK,
+                  "rows_yload": K1_ROW_YLOAD, "diag": K1_MOVE_DIAG,
+                  "ins": K1_MOVE_INS, "del": K1_MOVE_DEL},
+                 B * (12 + 3 * XL))
+
+
+def k2_bound(x, xlen, ylen, e: int) -> dict:
+    """K2's work: forward rows and the free-end scans; err and y_end
+    out."""
+    B = x.shape[0]
+    return _work(x, xlen, ylen, e, {"windows": B},
+                 {"rows": K2_ROW, "rows_pick": K2_ROW_PICK,
+                  "rows_yload": K2_ROW_YLOAD, "windows": K2_END}, B * 8)
+
+
+def _bound(rec: dict, work: dict) -> dict:
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    # the two pipes run side by side: the busier one sets the time
+    t_ops = max(work["alu"], work["fma"]) / INT32_OPS_PER_S * 1e3
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return rec
+
+
+def phase_k1(prob, e: int = 31):
     import torch
 
     from hifiasm_tpu_torch.ops.banded_tb import banded_tb, banded_tb_torch
 
-    XL, e = 775, 31
-    t0 = time.time()
-    x, xlen, y, ylen = k1_problems(np.random.default_rng(seed), B, XL, e)
-    print(f"[k1] made {B} windows in {time.time() - t0:.1f} s", flush=True)
-    args = [torch.as_tensor(a).cuda() for a in (x, xlen, y, ylen)]
+    x, xlen, y, ylen = prob
+    B, XL = x.shape
+    args = [torch.as_tensor(a).cuda() for a in prob]
     saved = banded_tb.launches
     got = banded_tb(*args, e)
     ref = banded_tb_torch(*args, e)
@@ -171,17 +213,58 @@ def phase_k1(B: int, seed: int = 7):
     plain_ms = _cuda_ms(lambda: banded_tb_torch(*args, e), 3)
     banded_tb.launches = saved       # comparison launches do not count
     work = k1_bound(x, xlen, ylen, got[3], got[4], e)
-    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
-    # the two pipes run side by side: the busier one sets the time
-    t_ops = max(work["alu"], work["fma"]) / INT32_OPS_PER_S * 1e3
-    rec = {"name": "banded_tb", "route": "cuda",
-           "source": "hifiasm_tpu_torch/csrc/banded_tb.cu",
-           "replaces": "hifiasm_tpu/ops/pallas_tb.py:440",
-           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None}
+    rec = _bound({"name": "banded_tb", "route": "cuda",
+                  "source": "hifiasm_tpu_torch/csrc/banded_tb.cu",
+                  "replaces": "hifiasm_tpu/ops/pallas_tb.py:440",
+                  "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                  "library_ms": None}, work)
     print(f"[k1] XL={XL} e={e} B={B}: kernel {ms:.3f} ms "
+          f"({B / ms * 1e3:.0f} windows/s), plain {plain_ms:.3f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+          f"{json.dumps(work)})", flush=True)
+    return rec, got
+
+
+def phase_k2(prob, k1_out, e: int = 31):
+    """K2 through its path, the entry point banded_forward, with its
+    launch count zeroed just before and read just after; then held
+    against its plain version and K1 on the same windows, and timed."""
+    import torch
+
+    from hifiasm_tpu_torch.ops.banded_fwd import (
+        banded_forward, banded_forward_torch,
+    )
+
+    x, xlen, y, ylen = prob
+    B, XL = x.shape
+    args = [torch.as_tensor(a).cuda() for a in prob]
+    banded_forward.launches = 0
+    got = banded_forward(*args, e)
+    torch.cuda.synchronize()
+    launches = banded_forward.launches
+    if launches == 0:
+        raise AssertionError("banded_forward launched no K2 kernel")
+    ref = banded_forward_torch(*args, e)
+    max_err = 0
+    for n, a, b, k1 in (("err", got.err, ref[0], k1_out[0]),
+                        ("y_end", got.y_end, ref[1], k1_out[2])):
+        max_err = max(max_err, int((a.long() - b.long()).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"K2 {n} differs from the plain version")
+        if not torch.equal(a, k1):
+            raise AssertionError(f"K2 {n} differs from K1's")
+    print(f"[k2] bit-equal to its plain version and to K1's err/y_end on "
+          f"all {B} windows ({launches} launch on its path)", flush=True)
+    banded_forward(*args, e)                          # warm-up
+    ms = _cuda_ms(lambda: banded_forward(*args, e), 10)
+    plain_ms = _cuda_ms(lambda: banded_forward_torch(*args, e), 3)
+    work = k2_bound(x, xlen, ylen, e)
+    rec = _bound({"name": "banded_fwd", "route": "cuda",
+                  "source": "hifiasm_tpu_torch/csrc/banded_fwd.cu",
+                  "replaces": "hifiasm_tpu/ops/banded_pallas.py:165",
+                  "launches": launches, "max_abs_err": max_err, "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": None}, work)
+    print(f"[k2] XL={XL} e={e} B={B}: kernel {ms:.3f} ms "
           f"({B / ms * 1e3:.0f} windows/s), plain {plain_ms:.3f} ms, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
           f"{json.dumps(work)})", flush=True)
@@ -243,6 +326,8 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
 
     import hifiasm_tpu_torch.ec.device_ec as D
     import hifiasm_tpu_torch.ec.pipeline as P
+    import hifiasm_tpu_torch.index.pos_table_dev as A
+    import hifiasm_tpu_torch.overlap.chain_device as C
     from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.config import HifiasmConfig
     from hifiasm_tpu_torch.ops.banded_tb import banded_tb
@@ -255,10 +340,9 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
     pfx = os.path.join(out_dir, "asm")
     cfg = HifiasmConfig(output_prefix=pfx, ignore_bin=True)
     torch.cuda.reset_peak_memory_stats()
-    for k in D.STATS:
-        D.STATS[k] = 0
-    for k in P.STATS:
-        P.STATS[k] = 0
+    for st in (D.STATS, P.STATS, A.STATS, C.STATS):
+        for k in st:
+            st[k] = 0
     banded_tb.launches = 0
     t0 = time.time()
     res = assemble(store, cfg, device="cuda")
@@ -272,6 +356,9 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
         raise AssertionError(f"{gfa} has no contigs")
     if launches["banded_tb"] == 0:
         raise AssertionError("the main path launched no K1 kernel")
+    if P.STATS["frontend_rounds"] == 0 or A.STATS["chunks"] == 0:
+        raise AssertionError("the EC rounds did not take the device "
+                             "front end")
     lens = _contig_lens(f"{pfx}.p_ctg.fa")
     tot = sum(lens)
     if not 0.8 * genome_len <= tot <= 1.25 * genome_len:
@@ -282,6 +369,8 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
              "contigs": len(lens), "n50": _n50(lens), "p_ctg_bp": tot,
              "stage_s": res.stage_s,
              "ec_s": {k: v for k, v in P.STATS.items() if k.endswith("_s")},
+             "frontend_rounds": P.STATS["frontend_rounds"],
+             "anchors": dict(A.STATS), "chaining": dict(C.STATS),
              "device_ec_parts_s": {k: v for k, v in D.STATS.items()
                                    if k.endswith("_s")},
              "k1_launches": launches["banded_tb"],
@@ -295,16 +384,17 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
 
 def phase_small(out_dir: str):
     """Small store (12 kb genome, depth 12, 1,800 bp reads): the four
-    outputs must be byte-identical between the card and the CPU."""
+    outputs must be byte-identical between the card, with the device
+    front end, and the CPU, with the host front end."""
     from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.config import HifiasmConfig
 
     outs = {}
-    for dev in ("cuda", "cpu"):
+    for dev, fe in (("cuda", True), ("cpu", False)):
         store = _store(12000, 12, 1800, 0.004, seed=11)
         pfx = os.path.join(out_dir, f"small_{dev}")
-        assemble(store, HifiasmConfig(output_prefix=pfx, ignore_bin=True),
-                 device=dev)
+        assemble(store, HifiasmConfig(output_prefix=pfx, ignore_bin=True,
+                                      device_frontend=fe), device=dev)
         outs[dev] = pfx
     for suf in ("bp.p_ctg.gfa", "bp.r_utg.gfa", "bp.p_utg.gfa", "p_ctg.fa"):
         with open(f"{outs['cuda']}.{suf}", "rb") as a, \
@@ -313,12 +403,13 @@ def phase_small(out_dir: str):
         if da != db or not da:
             raise AssertionError(f"small store: {suf} differs between "
                                  "cuda and cpu (or is empty)")
-    print("[small] cuda and cpu outputs byte-identical", flush=True)
+    print("[small] cuda (device front end) and cpu (host front end) "
+          "outputs byte-identical", flush=True)
 
 
 def phase_build():
-    """Compile K1 (nvcc) and the native host library (g++) at once; raise
-    if either does not load."""
+    """Compile every CUDA kernel (nvcc) and the native host library (g++)
+    at once; raise if any does not load."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hifiasm_tpu_torch import native
@@ -328,18 +419,24 @@ def phase_build():
         t0 = time.time()
         return fn(), time.time() - t0
 
+    def kernels():
+        cuda_build.build()
+        return [cuda_build.load(n) for n in cuda_build.SOURCES]
+
     with ThreadPoolExecutor(2) as ex:
-        k1 = ex.submit(timed, lambda: cuda_build.load("banded_tb"))
+        kern = ex.submit(timed, kernels)
         nat = ex.submit(timed, native.get_lib)
-        _, k1_s = k1.result()
+        _, k_s = kern.result()
         lib, nat_s = nat.result()
-    for ln in cuda_build.BUILD_LOGS.get("banded_tb", "").strip().splitlines():
-        print(f"[build:banded_tb] {ln}", flush=True)
+    for n in cuda_build.SOURCES:
+        for ln in cuda_build.BUILD_LOGS.get(n, "").strip().splitlines():
+            print(f"[build:{n}] {ln}", flush=True)
     if lib is None:
         raise RuntimeError("the native host library did not build:\n"
                            + native.BUILD_LOG)
-    print(f"[build] banded_tb {k1_s:.1f} s, native host library "
-          f"{nat_s:.1f} s (in parallel)", flush=True)
+    print(f"[build] CUDA kernels {', '.join(cuda_build.SOURCES)} "
+          f"{k_s:.1f} s, native host library {nat_s:.1f} s (in parallel)",
+          flush=True)
 
 
 def main() -> int:
@@ -367,8 +464,15 @@ def main() -> int:
     # 2. build every kernel and the native host library
     phase_build()
 
-    # 3. K1 against its plain version at the production shape
-    rec = phase_k1(K1_WINDOWS)
+    # 3. K1 against its plain version at the production shape, then K2
+    # on the same windows
+    t0 = time.time()
+    prob = k1_problems(np.random.default_rng(7), K1_WINDOWS, 775, 31)
+    print(f"[k1] made {K1_WINDOWS} windows in {time.time() - t0:.1f} s",
+          flush=True)
+    rec, k1_out = phase_k1(prob)
+    rec_k2 = phase_k2(prob, k1_out)
+    del k1_out
 
     out_dir = os.path.join(ROOT, "build", "smoke")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -381,7 +485,7 @@ def main() -> int:
     shutil.rmtree(out_dir, ignore_errors=True)
 
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    print(json.dumps({"kernels": [rec, rec_k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -57,16 +57,18 @@ def _check_ported(cfg: HifiasmConfig) -> None:
     checks = (
         (cfg.fn_bin_yak_pat or cfg.fn_bin_yak_mat or cfg.fn_bin_list_pat
          or cfg.fn_bin_list_mat, "trio binning (-1/-2/-3/-4)",
-         "item 10: trio"),
-        (cfg.ul_reads, "ultralong integration (--ul)", "item 10: UL"),
+         "the branches off bp: trio"),
+        (cfg.ul_reads, "ultralong integration (--ul)",
+         "the branches off bp: UL"),
         (cfg.hic_reads_1 or cfg.hic_reads_2, "Hi-C phasing (--h1/--h2)",
-         "item 10: Hi-C"),
+         "the branches off bp: Hi-C"),
         (cfg.polyploidy > 2 and not (cfg.purge_level == 0 or cfg.primary),
-         "polyploid output (--n-hap > 2)", "item 10: polyploid"),
+         "polyploid output (--n-hap > 2)", "the branches off bp: polyploid"),
         (cfg.dual_scaf, "scaffolding (--dual-scaf)",
-         "item 10: scaffolding"),
-        (cfg.ex_list, "read tracing (-e/--ex-list)", "item 10: debug"),
-        (cfg.dbg_het_cnt, "--dbg-het-cnt", "item 10: debug"),
+         "the branches off bp: scaffolding"),
+        (cfg.ex_list, "read tracing (-e/--ex-list)",
+         "the branches off bp: debug"),
+        (cfg.dbg_het_cnt, "--dbg-het-cnt", "the branches off bp: debug"),
     )
     for on, what, item in checks:
         if on:

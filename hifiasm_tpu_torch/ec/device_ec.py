@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -420,39 +420,44 @@ class DeviceEC:
         return (err.cpu().numpy(), ys.cpu().numpy(), yn.cpu().numpy(),
                 tb, ic, ib)
 
-    def process(self, read_ovs: List[Tuple[int, OverlapRegions]]
+    def process(self, read_ovs: List[Tuple[int, OverlapRegions]],
+                plans: Optional[Dict[int, dict]] = None
                 ) -> Tuple[Dict[int, ReadECOut], Dict[int, tuple]]:
         """read_ovs: [(rid, overlaps)]; returns per-read results plus
         per-read consensus inputs (packed decision planes, unpacked).
+        ``plans``: ready-made window plans per read (the device front
+        end's, with t_ws); without them each read is planned here.
 
         Reads stream through in bounded batches: the vote/count planes
         are sized [rows_per_batch, L], not [n_reads, L]."""
         # ~1.5 GB of vote planes per batch: L*(5+5+1+4+9) int32 per row
         rows = max(256, int(1.5e9 // max(self.bank.L * 96, 1)))
         if len(read_ovs) <= rows:
-            return self._process_batch(read_ovs)
+            return self._process_batch(read_ovs, plans)
         outs: Dict[int, ReadECOut] = {}
         cns: Dict[int, tuple] = {}
         for b0 in range(0, len(read_ovs), rows):
-            o, c = self._process_batch(read_ovs[b0:b0 + rows])
+            o, c = self._process_batch(read_ovs[b0:b0 + rows], plans)
             outs.update(o)
             cns.update(c)
         return outs, cns
 
-    def _process_batch(self, read_ovs: List[Tuple[int, OverlapRegions]]
+    def _process_batch(self, read_ovs: List[Tuple[int, OverlapRegions]],
+                       plans: Optional[Dict[int, dict]] = None
                        ) -> Tuple[Dict[int, ReadECOut], Dict[int, tuple]]:
         bank = self.bank
         R, L = len(read_ovs), bank.L
         e = E_BAND
         dev = self.device
         _t0 = time.time()
-        # ---- plan all windows (host) ----
+        # ---- plan all windows (host), unless the plans are given ----
         jobs = []
         ov_base = {}
         n_ov_tot = 0
         win_tot_all = []
         for rid, ov in read_ovs:
-            pl = plan_read_windows(ov, self.wl, self.e_rate)
+            pl = plans[rid] if plans is not None else \
+                plan_read_windows(ov, self.wl, self.e_rate)
             ov_base[rid] = n_ov_tot
             wt = np.zeros(len(ov), np.int32)
             np.add.at(wt, pl["ov_idx"], 1)

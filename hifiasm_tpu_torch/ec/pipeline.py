@@ -1,11 +1,14 @@
 """Error-correction driver: overlap -> phase -> consensus rounds.
 
 The port of hifiasm_tpu/ec/pipeline.py, device branch only.  Every round
-rebuilds the minimizer position index over the current reads (host),
-finds overlap candidates per read and chains them (host), then runs the
-window alignment, phasing and vote aggregation on the device
-(ec/device_ec.DeviceEC) and applies the per-column decisions on the
-host.  There is no size gate and no host-engine branch: ``ec_round``
+rebuilds the minimizer position index over the current reads (host) and
+uploads it; with ``cfg.device_frontend`` (the default) the anchors are
+gathered, chained and turned into window plans on the device
+(``_chain_all_reads_device``: index/pos_table_dev.py,
+overlap/chain_device.py), else anchors and chains come from the host.
+Then the window alignment, phasing and vote aggregation run on the
+device (ec/device_ec.DeviceEC) and the host applies the per-column
+decisions.  There is no size gate and no host-engine branch: ``ec_round``
 always takes the device branch on the given device.  The one host step
 inside a round is by design: reads whose vote planes show an ambiguity
 cluster re-run on the host DAG path (traceback strings -> plurality),
@@ -38,9 +41,14 @@ from hifiasm_tpu_torch.utils.logging import log
 
 LONG_INDEL_WIN_DIFF = 16
 
-# per-stage wall seconds and counters of the EC runs since the last reset
-STATS = {"index_s": 0.0, "chain_s": 0.0, "device_ec_s": 0.0,
-         "consensus_s": 0.0, "host_dag_reads": 0}
+# per-stage wall seconds and counters of the EC runs since the last reset:
+# chain_s is the whole front end (anchors to window plans, either path);
+# within the device front end, plan_many_s is the vectorised host window
+# planner and tws_s the device t_ws search (the anchor and chain stages
+# count in index/pos_table_dev.STATS and overlap/chain_device.STATS)
+STATS = {"index_s": 0.0, "chain_s": 0.0, "plan_many_s": 0.0, "tws_s": 0.0,
+         "device_ec_s": 0.0, "consensus_s": 0.0, "host_dag_reads": 0,
+         "frontend_rounds": 0}
 
 
 @dataclass
@@ -78,6 +86,51 @@ def _chain_all_reads(store, codes, mzs, pt, cfg, hom_cov):
     reads = [(rid, an, len(codes[rid])) for rid, an in zip(rids, ans)]
     ovs = chain_many(reads, store.lens, cp, max_n_chain=cfg.max_n_chain)
     return [(rid, ov) for (rid, _, _), ov in zip(reads, ovs)]
+
+
+def _chain_all_reads_device(store, mzs, pt, cfg, hom_cov, device):
+    """Device front end (port of the JAX package's function of the same
+    name): the table is uploaded, anchors are gathered and chained on
+    the device, and only per-chain numbers reach the host.  Returns
+    (read_ovs, plans): regions field-identical with the host chain_many
+    (hits stay on the device) and ready-made window plans per read."""
+    from hifiasm_tpu_torch.ec.window_align import plan_windows_many
+    from hifiasm_tpu_torch.index.pos_table_dev import (
+        collect_anchor_groups_device, device_table_from_host,
+    )
+    from hifiasm_tpu_torch.overlap.chain_device import (
+        DeviceChunkChains, regions_from_device_chains,
+    )
+
+    cp = ChainParams.for_k(cfg.k)
+    table = device_table_from_host(pt, device)
+    read_ovs = []
+    plans = {}
+    for cols, meta in collect_anchor_groups_device(
+            mzs, table, list(range(store.n_reads)), store.lens, hom_cov):
+        dcc = DeviceChunkChains(cols, meta, store.lens, store.lens, cp)
+        regs = regions_from_device_chains(dcc, store.lens, store.lens,
+                                          cfg.max_n_chain)
+        # window planning: one vectorised host pass over the chunk, then
+        # one device search for every window's t_ws
+        t0 = time.time()
+        chunk_plans = plan_windows_many(regs, cfg.ec_window,
+                                        cfg.max_ov_diff_ec)
+        t1 = time.time()
+        STATS["plan_many_s"] += t1 - t0
+        ws = [chunk_plans[rr]["ws"] for rr, _ in regs]
+        ci = [ov.hit_ref[chunk_plans[rr]["ov_idx"]] for rr, ov in regs]
+        t_all = dcc.tws_for_windows(np.concatenate(ci), np.concatenate(ws))
+        STATS["tws_s"] += time.time() - t1
+        o = 0
+        for (rr, ov), w in zip(regs, ws):
+            pl = chunk_plans[rr]
+            pl["t_ws"] = t_all[o:o + len(w)]
+            o += len(w)
+            plans[rr] = pl
+            read_ovs.append((rr, ov))
+    STATS["frontend_rounds"] += 1
+    return read_ovs, plans
 
 
 def _index(codes, cfg: HifiasmConfig, ft):
@@ -130,12 +183,17 @@ def ec_round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
     n_corr = 0
 
     t0 = time.time()
-    read_ovs = _chain_all_reads(store, codes, mzs, pt, cfg, hom_cov)
+    plans = None
+    if cfg.device_frontend and loaded is None:
+        read_ovs, plans = _chain_all_reads_device(store, mzs, pt, cfg,
+                                                  hom_cov, dev)
+    else:
+        read_ovs = _chain_all_reads(store, codes, mzs, pt, cfg, hom_cov)
     STATS["chain_s"] += time.time() - t0
     t0 = time.time()
     dec = DeviceEC(store, wl=cfg.ec_window, e_rate=cfg.max_ov_diff_ec,
                    device=dev)
-    outs, cns_in = dec.process(read_ovs)
+    outs, cns_in = dec.process(read_ovs, plans=plans)
     STATS["device_ec_s"] += time.time() - t0
     t0 = time.time()
     ov_of = dict(read_ovs)
@@ -159,6 +217,19 @@ def ec_round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
         # (traceback strings -> DAG plurality, ec/consensus.py)
         if _ambiguity_clusters(amb):
             ov_full = ov_of[rid]
+            if len(ov_full) and len(ov_full.hit_self) == 0 and \
+                    ov_full.n_hits.max(initial=0) > 0:
+                # hits live on the device: re-derive this read's overlaps
+                # on the host (bit-identical anchors and chain DP)
+                from hifiasm_tpu_torch.overlap.anchors import (
+                    chain_many, collect_anchors_many,
+                )
+                an1 = collect_anchors_many(mzs, pt, [rid], store.lens,
+                                           hom_cov)[0]
+                ov_full = chain_many(
+                    [(rid, an1, len(q))], store.lens,
+                    ChainParams.for_k(cfg.k),
+                    max_n_chain=cfg.max_n_chain)[0]
             tbs = align_overlaps(q, ov_full, get_target,
                                  wl=cfg.ec_window,
                                  e_rate=cfg.max_ov_diff_ec)

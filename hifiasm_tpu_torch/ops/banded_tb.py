@@ -41,12 +41,16 @@ def _add63(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((hi & _M31) << 32) | (lo & _M32)
 
 
-def banded_tb_torch(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
-                    ylen: torch.Tensor, e: int):
-    """Plain PyTorch version: vectorised over the batch, a Python loop over
+def forward_scan(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
+                 ylen: torch.Tensor, e: int, log: bool):
+    """The banded Myers forward scan and free-end scan shared by K1's and
+    K2's plain versions: vectorised over the batch, a Python loop over
     rows.  Band planes live in int64 (the 63-bit band fits a non-negative
     int64; every add and shift is masked) because PyTorch on the CPU has
-    no unsigned 64-bit shifts, adds or compares."""
+    no unsigned 64-bit shifts, adds or compares.  Returns (err, y_end,
+    ok, logs) with err = -1 where the best end needs more than ``e``
+    errors, and logs = the per-row (D0, HP, VP) planes [xlen.max(), B]
+    when ``log``, else None."""
     dev = x.device
     B, XL = x.shape
     YL = y.shape[1]
@@ -57,7 +61,6 @@ def banded_tb_torch(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
     y64 = y.long()
     xl = xlen.long().clamp(0, XL)
     yl = ylen.long()
-    rows = torch.arange(B, device=dev)
     codes = torch.arange(4, device=dev)
 
     w0 = min(W, YL)
@@ -68,9 +71,10 @@ def banded_tb_torch(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
         for c in range(4)], dim=1)                               # [B, 4]
 
     tmax = int(xl.max()) if B else 0
-    st_d0 = torch.zeros((tmax, B), dtype=torch.int64, device=dev)
-    st_hp = torch.zeros_like(st_d0)
-    st_vp = torch.zeros_like(st_d0)
+    logs = None
+    if log:
+        logs = tuple(torch.zeros((tmax, B), dtype=torch.int64, device=dev)
+                     for _ in range(3))
     VP = torch.zeros(B, dtype=torch.int64, device=dev)
     VN = torch.zeros_like(VP)
     err = torch.zeros_like(VP)
@@ -90,9 +94,10 @@ def banded_tb_torch(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
         VP = torch.where(live, nVP, VP)
         VN = torch.where(live, nVN, VN)
         err = torch.where(live, err + 1 - (D0 & 1), err)
-        st_d0[i] = torch.where(live, D0, zero)
-        st_hp[i] = torch.where(live, HP, zero)
-        st_vp[i] = torch.where(live, VP, zero)
+        if log:
+            logs[0][i] = torch.where(live, D0, zero)
+            logs[1][i] = torch.where(live, HP, zero)
+            logs[2][i] = torch.where(live, VP, zero)
         peq = peq >> 1
         nb = i + W
         if nb < YL:
@@ -117,6 +122,26 @@ def banded_tb_torch(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
     best_n = torch.where(pref, xl + e, best_n)
     ok = best_err <= e
     out_err = torch.where(ok, best_err, torch.full_like(best_err, -1))
+    return out_err, best_n, ok, logs
+
+
+def banded_tb_torch(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
+                    ylen: torch.Tensor, e: int):
+    """Plain PyTorch version: ``forward_scan`` with the move log, then the
+    traceback, one move per lane per step."""
+    dev = x.device
+    B, XL = x.shape
+    YL = y.shape[1]
+    E2 = 2 * e
+    x64 = x.long()
+    y64 = y.long()
+    xl = xlen.long().clamp(0, XL)
+    yl = ylen.long()
+    rows = torch.arange(B, device=dev)
+    tmax = int(xl.max()) if B else 0
+    out_err, best_n, ok, (st_d0, st_hp, st_vp) = forward_scan(
+        x, xlen, y, ylen, e, log=True)
+    zero = torch.zeros(B, dtype=torch.int64, device=dev)
 
     # traceback: one move per lane per step
     tb = torch.full((B * XL,), 5, dtype=torch.uint8, device=dev)

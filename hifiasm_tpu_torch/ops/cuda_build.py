@@ -3,7 +3,8 @@
 Each ``.cu`` source has a plain C interface.  ``nvcc`` compiles it for
 ``sm_90a`` into a shared library under the gitignored ``build/kernels``
 directory beside the package, named by a hash of the source so an edited
-kernel is rebuilt; the library is loaded with ``ctypes``.  A build that
+kernel is rebuilt; the library is loaded with ``ctypes``.  ``build``
+starts one ``nvcc`` per missing library, all at once.  A build that
 fails raises with the compiler's output: nothing falls back.
 """
 
@@ -21,7 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 # kernel name -> source file under csrc/
-SOURCES = {"banded_tb": "banded_tb.cu"}
+SOURCES = {"banded_tb": "banded_tb.cu", "banded_fwd": "banded_fwd.cu"}
 
 BUILD_LOGS: Dict[str, str] = {}       # compiler output (ptxas -v) per kernel
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -44,25 +45,62 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
+def build(names=None) -> None:
+    """Compile the libraries of ``names`` (default: every kernel) that are
+    not built yet, one nvcc process per source, all started together."""
+    todo = [n for n in (SOURCES if names is None else names)
+            if not os.path.exists(library_path(n))]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for n in todo:
+        tmp = f"{library_path(n)}.{os.getpid()}.tmp"
+        procs[n] = (tmp, subprocess.Popen(
+            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-o", tmp, os.path.join(CSRC, SOURCES[n])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    failed = []
+    for n, (tmp, p) in procs.items():
+        BUILD_LOGS[n] = p.communicate()[0].decode(errors="replace")
+        if p.returncode != 0 or not os.path.exists(tmp):
+            failed.append(n)
+        else:
+            os.replace(tmp, library_path(n))
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(
+            f"{n}:\n{BUILD_LOGS[n]}" for n in failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, compiled on first use."""
     lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    out = library_path(name)
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        r = subprocess.run(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-o", tmp, os.path.join(CSRC, SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        BUILD_LOGS[name] = r.stdout.decode(errors="replace")
-        if r.returncode != 0 or not os.path.exists(tmp):
-            raise RuntimeError(f"CUDA kernel build failed: {name}:\n"
-                               f"{BUILD_LOGS[name]}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(out)
-    _LIBS[name] = lib
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(library_path(name))
     return lib
+
+
+def dump_sass(out_dir: str) -> None:
+    """Write ``cuobjdump -sass`` of every built kernel library to
+    ``out_dir/<name>.sass`` (the source of the instruction counts behind
+    the operation bounds that chip_smoke.py reports)."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    os.makedirs(out_dir, exist_ok=True)
+    for n in SOURCES:
+        with open(os.path.join(out_dir, f"{n}.sass"), "w") as f:
+            subprocess.run([cuobjdump, "-sass", library_path(n)], stdout=f,
+                           stderr=subprocess.STDOUT, check=True)
+
+
+if __name__ == "__main__":
+    # python -m hifiasm_tpu_torch.ops.cuda_build [SASS_DIR]: build every
+    # kernel, print the compiler's output, and dump the SASS if asked
+    import sys
+
+    build()
+    for n, log in BUILD_LOGS.items():
+        print(f"[{n}]\n{log}")
+    if len(sys.argv) > 1:
+        dump_sass(sys.argv[1])

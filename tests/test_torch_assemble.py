@@ -3,8 +3,9 @@ against the JAX package's device-EC path (hifiasm_tpu.assemble with
 align_engine="jax", mesh_devices=1) on the store of
 tests/test_device_frontend.py: bp.p_ctg.gfa, bp.r_utg.gfa, bp.p_utg.gfa
 and p_ctg.fa must be byte-identical — fresh, on a rerun, through the
-port's CLI on a FASTA file, and after resuming from the JAX package's EC
-checkpoint."""
+port's CLI on a FASTA file, after resuming from the JAX package's EC
+checkpoint, and on the repeat-heavy store of that file with the device
+front end on and off."""
 
 import dataclasses
 import os
@@ -114,6 +115,35 @@ def test_resume_from_jax_checkpoint(runs):
                    device="cpu")
     assert res.store.n_reads == len(names)       # the checkpoint's reads
     _assert_same(outs["jax_resumed"], outs["port_resumed"])
+
+
+@pytest.mark.parametrize("frontend", [True, False])
+def test_repeat_heavy_matches_jax(repeat_runs, frontend):
+    """Multi-copy chains, quota and dedup through the port's device front
+    end (and its host chain path) against the JAX package's device front
+    end, byte for byte."""
+    import hifiasm_tpu_torch.ec.pipeline as P
+
+    d, names, reads, pj = repeat_runs
+    pt = str(d / f"port_fe{int(frontend)}")
+    n0 = P.STATS["frontend_rounds"]
+    assemble(ReadStore.from_arrays(names, reads),
+             _port_cfg(pt, device_frontend=frontend), device="cpu")
+    assert P.STATS["frontend_rounds"] - n0 == int(frontend)
+    _assert_same(pj, pt)
+
+
+@pytest.fixture(scope="module")
+def repeat_runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_asm_rep")
+    rng = np.random.default_rng(7)
+    g = make_genome(rng, 16000, repeat_frac=0.3)
+    reads, _, _ = sample_reads(rng, g, depth=14, read_len=2200,
+                               err_rate=0.004)
+    names = [f"r{i}" for i in range(len(reads))]
+    pj = str(d / "jax")
+    jax_assemble(JStore.from_arrays(names, reads), _jcfg(pj))
+    return d, names, reads, pj
 
 
 def test_unported_branches_raise(tmp_path):
