@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hifiasm_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --kernels    # phases 1-3b: build, K1 and K2
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -9,13 +10,17 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build every CUDA kernel (one nvcc per source, all at once) and the
    native host library from the sources in this checkout, side by side,
    so that no later phase times a build;
-3. K1 (csrc/banded_tb.cu) against its plain PyTorch version on the card
-   at the production shape (XL = 775, e = 31, 65,536 windows with ragged
-   lengths and dead lanes): every output bit-equal; times of both;
+3. K1 (csrc/banded_tb.cu) against its plain PyTorch version on the card,
+   first on a boundary stress set (xlen at multiples of the checkpoint
+   segment and one either side, runs of insertions and deletions,
+   ylen < xlen, dead lanes), then at the production shape (XL = 775,
+   e = 31, 65,536 windows with ragged lengths and dead lanes): every
+   output bit-equal; times of both (the wrapper's call), and the build's
+   registers, shared memory and blocks per SM;
 3b. K2 (csrc/banded_fwd.cu) on the same windows through its own path,
    the engine-shaped entry point ``banded_forward`` (no assembly path
    calls it, as in the JAX package): bit-equal to its plain version and
-   to K1's err and y_end; times of both;
+   to K1's err and y_end; times of both, and its occupancy;
 4. the main path end to end on the card: a synthetic 4 Mb genome, HiFi
    reads of 15 kb at 30x depth with 0.3% error (~120 Mb), the default
    3 EC rounds through ``assemble(..., device="cuda")``, whose EC rounds
@@ -49,30 +54,27 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # ALU pipe and 64 on the FMA pipe (which also runs IMAD)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# K1's operations: the instructions of its two loops in `cuobjdump -sass`
-# of the sm_90a library that phase 2 builds from csrc/banded_tb.cu, as
-# (integer ALU pipe, IMAD on the FMA pipe); loads, stores and branches are
-# left out, and so is the work outside the two loops.
-# Forward loop (unrolled x2), per x row:
-K1_ROW = (44, 11.5)             # every row
-K1_ROW_PICK = (7, 2)            # more when x[i] != 0 (Peq select chain)
-K1_ROW_YLOAD = (20, 0)          # more when y[i + W] enters the band
-# traceback loop, per move
-K1_MOVE_DIAG = (33, 11)
-K1_MOVE_INS = (51, 14)
-K1_MOVE_DEL = (52, 16)
-# K2's operations, counted the same way in the SASS of csrc/banded_fwd.cu
-# (both dumps: python -m hifiasm_tpu_torch.ops.cuda_build DIR): its
-# forward loop (unrolled x2) per x row, and per window its two free-end
-# loops at e = 31 (62 and 31 steps, unrolled x4; the uniform-datapath
-# UIADD3s left out)
-K2_ROW = (38.5, 3.5)
-K2_ROW_PICK = (7, 2)
-K2_ROW_YLOAD = (20, 0)
-K2_END = (816, 60)
+# Operations of K1 and K2: instructions in `cuobjdump -sass` of the e = 31
+# kernels that phase 2 builds (python -m hifiasm_tpu_torch.ops.cuda_build
+# DIR dumps them; scripts/sass_counts.py counts an address range), as
+# (integer ALU pipe, IMAD on the FMA pipe); loads, stores, branches and
+# barriers are left out.  Per x row: the 16-row unrolled body of
+# csrc/banded_myers.cuh `forward_pass` / 16, alike in both kernels.  K1
+# per backward step: pass B's 16 unrolled row steps / 16 (the step has no
+# branch, so an insertion run costs nothing beyond its row).  Per window:
+# the free-end scan (62 steps, unrolled x2) and, in K1, the y code planes
+# built before pass B.  K1's recompute (783 + 80 per 16 rows) is the
+# design's cost, not the function's work, and is left out, as are staging
+# and the write-out (bytes, counted in the bytes bound).
+K1_ROW = (47.0, 5.125)
+K1_BACK_ROW = (56.25, 15.375)
+K1_END = (1420, 196)
+K2_ROW = (47.0625, 5.0625)
+K2_END = (733, 8)
 
 # the production shapes the gate runs at; a cut is recorded in PERF.md
 K1_WINDOWS = 65536          # one DeviceEC chunk of windows
+K1_STRESS = 8192            # K1's boundary stress windows
 MAIN_DEPTH = 30.0           # read depth of the main-path run
 
 
@@ -118,8 +120,59 @@ def k1_problems(rng, B: int, XL: int, e: int):
     return x, xlen, y, ylen
 
 
-def _cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events)."""
+def k1_stress(rng, B: int, XL: int, e: int, rc: int = 16):
+    """Windows at K1's segment boundaries: xlen at every multiple of
+    ``rc`` and one either side (0, 1 and XL among them), cycling through
+    y made of x with runs of insertions, with runs of deletions, with
+    mixed errors, unrelated to x, or cut below xlen; every 29th lane has
+    ylen = 0."""
+    YL = XL + 2 * e
+    lens = sorted({v for k in range(XL // rc + 2)
+                   for v in (k * rc - 1, k * rc, k * rc + 1)
+                   if 0 <= v <= XL} | {XL})
+    x = np.full((B, XL), 4, np.uint8)
+    y = np.full((B, YL), 4, np.uint8)
+    xlen = np.zeros(B, np.int32)
+    ylen = np.zeros(B, np.int32)
+    runs = max(e // 3, 1)
+    for b in range(B):
+        xl = lens[b % len(lens)]
+        base = rng.integers(0, 4, xl).astype(np.uint8)
+        s = list(base)
+        kind = (b // len(lens) + b) % 5
+        if kind == 0:                    # insertion runs, one up to e
+            for n in [int(rng.integers(1, max(e, 1) + 1))] + \
+                    list(rng.integers(1, runs + 1, int(rng.integers(0, 3)))):
+                p = int(rng.integers(0, len(s) + 1))
+                s[p:p] = list(rng.integers(0, 4, int(n)))
+        elif kind == 1:                  # deletion runs
+            for _ in range(int(rng.integers(1, 4))):
+                if s:
+                    p = int(rng.integers(0, len(s)))
+                    del s[p:p + int(rng.integers(1, runs + 1))]
+        elif kind == 2 and xl:
+            s = list(_mutate(base, int(rng.integers(0, e + 1)), rng))
+        elif kind == 3:
+            s = list(rng.integers(0, 4, xl))
+        off = int(rng.integers(0, 2 * e + 1))
+        yfull = np.concatenate(
+            [rng.integers(0, 4, off), np.array(s, np.int64),
+             rng.integers(0, 4, YL)]).astype(np.uint8)[:YL]
+        yl = int(rng.integers(0, max(xl, 1))) if kind == 4 else YL
+        if b % 29 == 7:
+            yl = 0
+        x[b, :xl] = base
+        xlen[b] = xl
+        y[b, :yl] = yfull[:yl]
+        ylen[b] = yl
+    return x, xlen, y, ylen
+
+
+def _cuda_ms(fn, reps: int, calls: int = 1) -> float:
+    """Median milliseconds per call of ``fn`` on the card: CUDA events
+    around ``calls`` calls in a row (so that the host's time to enqueue a
+    call hides behind the card's work on the one before), over ``reps``
+    runs."""
     import torch
 
     times = []
@@ -127,53 +180,52 @@ def _cuda_ms(fn, reps: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
-def _work(x, xlen, ylen, e: int, n: dict, per: dict,
-          out_bytes: int) -> dict:
+def _work(x, e: int, n: dict, per: dict, out_bytes: int) -> dict:
     """What a banded kernel must do for these windows: the bytes it must
     move (each input read once, each output written once) and the
-    instructions its loops run, per pipe, for this data.  ``n`` and
-    ``per`` add the kernel's own events to the forward loop's rows."""
+    instructions it runs, per pipe, for this data: ``n`` counts each
+    event, ``per`` gives its (ALU, FMA) instructions."""
     B, XL = x.shape
-    YL, W = XL + 2 * e, 2 * e + 1
-    xl_eff = np.clip(xlen.astype(np.int64), 0, XL)
-    in_x = np.arange(XL)[None, :] < xl_eff[:, None]
-    n = {"rows": int(xl_eff.sum()),
-         "rows_pick": int(((x != 0) & in_x).sum()),
-         "rows_yload": int(np.clip(np.minimum(ylen.astype(np.int64), YL)
-                                   - W, 0, xl_eff).sum()), **n}
+    n = dict(n)
     n["alu"] = sum(n[k] * per[k][0] for k in per)
     n["fma"] = sum(n[k] * per[k][1] for k in per)
-    n["bytes"] = B * (XL + YL + 8) + out_bytes
+    n["bytes"] = B * (XL + XL + 2 * e + 8) + out_bytes
     return n
 
 
-def k1_bound(x, xlen, ylen, tb, ic, e: int) -> dict:
-    """K1's work: forward rows and traceback moves; err, y_start, y_end
-    and the three [B, XL] planes out."""
+def _rows(x, xlen) -> int:
+    return int(np.clip(xlen.astype(np.int64), 0, x.shape[1]).sum())
+
+
+def k1_bound(x, xlen, tb, e: int) -> dict:
+    """K1's work: the forward rows once, the backward steps (one per x
+    row of an aligned window; an insertion run is one bit scan inside
+    its row's step, so it adds nothing), the free-end scan and the y
+    planes per window; not the recompute.  err, y_start, y_end and the
+    three [B, XL] planes out."""
     B, XL = x.shape
-    return _work(x, xlen, ylen, e,
-                 {"diag": int((tb < 4).sum()), "ins": int(ic.long().sum()),
-                  "del": int((tb == 4).sum())},
-                 {"rows": K1_ROW, "rows_pick": K1_ROW_PICK,
-                  "rows_yload": K1_ROW_YLOAD, "diag": K1_MOVE_DIAG,
-                  "ins": K1_MOVE_INS, "del": K1_MOVE_DEL},
+    return _work(x, e,
+                 {"rows": _rows(x, xlen), "bwd_rows": int((tb < 5).sum()),
+                  "windows": B},
+                 {"rows": K1_ROW, "bwd_rows": K1_BACK_ROW,
+                  "windows": K1_END},
                  B * (12 + 3 * XL))
 
 
-def k2_bound(x, xlen, ylen, e: int) -> dict:
-    """K2's work: forward rows and the free-end scans; err and y_end
-    out."""
+def k2_bound(x, xlen, e: int) -> dict:
+    """K2's work: the forward rows and the free-end scan per window; err
+    and y_end out."""
     B = x.shape[0]
-    return _work(x, xlen, ylen, e, {"windows": B},
-                 {"rows": K2_ROW, "rows_pick": K2_ROW_PICK,
-                  "rows_yload": K2_ROW_YLOAD, "windows": K2_END}, B * 8)
+    return _work(x, e, {"rows": _rows(x, xlen), "windows": B},
+                 {"rows": K2_ROW, "windows": K2_END}, B * 8)
 
 
 def _bound(rec: dict, work: dict) -> dict:
@@ -185,43 +237,62 @@ def _bound(rec: dict, work: dict) -> dict:
     return rec
 
 
-def phase_k1(prob, e: int = 31):
+def _equal(tag: str, names, got, ref) -> int:
+    """Raise unless every output equals its plain version's; the largest
+    absolute difference (0)."""
     import torch
 
-    from hifiasm_tpu_torch.ops.banded_tb import banded_tb, banded_tb_torch
-
-    x, xlen, y, ylen = prob
-    B, XL = x.shape
-    args = [torch.as_tensor(a).cuda() for a in prob]
-    saved = banded_tb.launches
-    got = banded_tb(*args, e)
-    ref = banded_tb_torch(*args, e)
-    torch.cuda.synchronize()
-    names = ("err", "y_start", "y_end", "tb", "ic", "ib")
     max_err = 0
     for n, a, b in zip(names, got, ref):
         d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
         max_err = max(max_err, d)
         if not torch.equal(a, b):
-            raise AssertionError(f"K1 {n} differs from the plain version "
+            raise AssertionError(f"{tag} {n} differs from the plain version "
                                  f"(max abs diff {d})")
+    return max_err
+
+
+def phase_k1(prob, stress, e: int = 31):
+    """K1 against its plain version on the production windows and on the
+    boundary stress set (bit-equal), then the wrapper's time."""
+    import torch
+
+    from hifiasm_tpu_torch.ops import cuda_build
+    from hifiasm_tpu_torch.ops.banded_tb import banded_tb, banded_tb_torch
+
+    names = ("err", "y_start", "y_end", "tb", "ic", "ib")
+    saved = banded_tb.launches
+    st_args = [torch.as_tensor(a).cuda() for a in stress]
+    _equal("K1 (stress set)", names, banded_tb(*st_args, e),
+           banded_tb_torch(*st_args, e))
+    print(f"[k1] bit-equal on the {len(stress[0])} boundary stress windows "
+          f"(xlen at multiples of 16 and +-1, insertion and deletion runs, "
+          f"ylen < xlen, dead lanes)", flush=True)
+    x, xlen, y, ylen = prob
+    B, XL = x.shape
+    args = [torch.as_tensor(a).cuda() for a in prob]
+    got = banded_tb(*args, e)
+    max_err = _equal("K1", names, got, banded_tb_torch(*args, e))
+    torch.cuda.synchronize()
     ok = int((got[0] >= 0).sum())
     print(f"[k1] bit-equal on all {B} windows ({ok} aligned, "
           f"{B - ok} failed)", flush=True)
     banded_tb(*args, e)                              # warm-up
-    ms = _cuda_ms(lambda: banded_tb(*args, e), 10)
+    ms = _cuda_ms(lambda: banded_tb(*args, e), 5, 10)
     plain_ms = _cuda_ms(lambda: banded_tb_torch(*args, e), 3)
     banded_tb.launches = saved       # comparison launches do not count
-    work = k1_bound(x, xlen, ylen, got[3], got[4], e)
+    work = k1_bound(x, xlen, got[3].cpu().numpy(), e)
     rec = _bound({"name": "banded_tb", "route": "cuda",
                   "source": "hifiasm_tpu_torch/csrc/banded_tb.cu",
                   "replaces": "hifiasm_tpu/ops/pallas_tb.py:440",
                   "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                  "library_ms": None}, work)
+                  "library_ms": None, **cuda_build.info("banded_tb")}, work)
     print(f"[k1] XL={XL} e={e} B={B}: kernel {ms:.3f} ms "
           f"({B / ms * 1e3:.0f} windows/s), plain {plain_ms:.3f} ms, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-          f"{json.dumps(work)})", flush=True)
+          f"{json.dumps(work)}), {rec['regs']} registers, "
+          f"{rec['smem_bytes']} B shared, {rec['blocks_per_sm']} "
+          f"blocks/SM", flush=True)
     return rec, got
 
 
@@ -231,6 +302,7 @@ def phase_k2(prob, k1_out, e: int = 31):
     against its plain version and K1 on the same windows, and timed."""
     import torch
 
+    from hifiasm_tpu_torch.ops import cuda_build
     from hifiasm_tpu_torch.ops.banded_fwd import (
         banded_forward, banded_forward_torch,
     )
@@ -244,30 +316,30 @@ def phase_k2(prob, k1_out, e: int = 31):
     launches = banded_forward.launches
     if launches == 0:
         raise AssertionError("banded_forward launched no K2 kernel")
-    ref = banded_forward_torch(*args, e)
-    max_err = 0
-    for n, a, b, k1 in (("err", got.err, ref[0], k1_out[0]),
-                        ("y_end", got.y_end, ref[1], k1_out[2])):
-        max_err = max(max_err, int((a.long() - b.long()).abs().max()))
-        if not torch.equal(a, b):
-            raise AssertionError(f"K2 {n} differs from the plain version")
+    max_err = _equal("K2", ("err", "y_end"), (got.err, got.y_end),
+                     banded_forward_torch(*args, e))
+    for n, a, k1 in (("err", got.err, k1_out[0]),
+                     ("y_end", got.y_end, k1_out[2])):
         if not torch.equal(a, k1):
             raise AssertionError(f"K2 {n} differs from K1's")
     print(f"[k2] bit-equal to its plain version and to K1's err/y_end on "
           f"all {B} windows ({launches} launch on its path)", flush=True)
     banded_forward(*args, e)                          # warm-up
-    ms = _cuda_ms(lambda: banded_forward(*args, e), 10)
+    ms = _cuda_ms(lambda: banded_forward(*args, e), 5, 10)
     plain_ms = _cuda_ms(lambda: banded_forward_torch(*args, e), 3)
-    work = k2_bound(x, xlen, ylen, e)
+    work = k2_bound(x, xlen, e)
     rec = _bound({"name": "banded_fwd", "route": "cuda",
                   "source": "hifiasm_tpu_torch/csrc/banded_fwd.cu",
                   "replaces": "hifiasm_tpu/ops/banded_pallas.py:165",
                   "launches": launches, "max_abs_err": max_err, "ms": ms,
-                  "plain_ms": plain_ms, "library_ms": None}, work)
+                  "plain_ms": plain_ms, "library_ms": None,
+                  **cuda_build.info("banded_fwd")}, work)
     print(f"[k2] XL={XL} e={e} B={B}: kernel {ms:.3f} ms "
           f"({B / ms * 1e3:.0f} windows/s), plain {plain_ms:.3f} ms, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-          f"{json.dumps(work)})", flush=True)
+          f"{json.dumps(work)}), {rec['regs']} registers, "
+          f"{rec['smem_bytes']} B shared, {rec['blocks_per_sm']} "
+          f"blocks/SM", flush=True)
     return rec
 
 
@@ -439,8 +511,13 @@ def phase_build():
           flush=True)
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -470,9 +547,13 @@ def main() -> int:
     prob = k1_problems(np.random.default_rng(7), K1_WINDOWS, 775, 31)
     print(f"[k1] made {K1_WINDOWS} windows in {time.time() - t0:.1f} s",
           flush=True)
-    rec, k1_out = phase_k1(prob)
+    stress = k1_stress(np.random.default_rng(8), K1_STRESS, 775, 31)
+    rec, k1_out = phase_k1(prob, stress)
     rec_k2 = phase_k2(prob, k1_out)
     del k1_out
+    if kernels_only:
+        print(json.dumps({"kernels": [rec, rec_k2]}), flush=True)
+        return 0
 
     out_dir = os.path.join(ROOT, "build", "smoke")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -493,4 +574,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

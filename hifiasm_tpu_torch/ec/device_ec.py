@@ -414,9 +414,8 @@ class DeviceEC:
             sl = slice(c0, min(n, c0 + self.chunk))
             x, xl, y, yl = gather_windows(
                 self.bank, XL, e, *(c[sl] for c in cols), last_d[sl])
-            out = banded_tb(x, xl, y, yl, e)
-            for dst, src in zip((err, ys, yn, tb, ic, ib), out):
-                dst[sl] = src
+            banded_tb(x, xl, y, yl, e,
+                      out=tuple(a[sl] for a in (err, ys, yn, tb, ic, ib)))
         return (err.cpu().numpy(), ys.cpu().numpy(), yn.cpu().numpy(),
                 tb, ic, ib)
 

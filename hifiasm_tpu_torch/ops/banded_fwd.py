@@ -6,7 +6,7 @@ the hand-written kernel ``csrc/banded_fwd.cu`` (one window per thread; it
 replaces the TPU kernel ``_pallas_forward`` of
 hifiasm_tpu/ops/banded_pallas.py).  For CPU tensors it runs
 ``banded_forward_torch``, the plain PyTorch version: K1's forward and
-free-end scan (ops/banded_tb.forward_scan) without the move log.  There
+free-end scan (ops/banded_tb.forward_scan) without checkpoints.  There
 is no fallback between the two: a CUDA tensor either goes through the
 kernel or raises.
 
@@ -30,7 +30,7 @@ from hifiasm_tpu_torch.ops.banded_tb import _check, forward_scan
 def banded_forward_torch(x: torch.Tensor, xlen: torch.Tensor,
                          y: torch.Tensor, ylen: torch.Tensor, e: int):
     """Plain PyTorch version: (err, y_end), int32 [B] each."""
-    err, y_end, _, _ = forward_scan(x, xlen, y, ylen, e, log=False)
+    err, y_end, _, _ = forward_scan(x, xlen, y, ylen, e)
     return err.int(), y_end.int()
 
 
@@ -78,9 +78,8 @@ def banded_forward(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
             banded_forward.launches += 1
     else:
         raise ValueError(f"unsupported device {dev}")
-    z = torch.zeros((B, XL), dtype=torch.uint8, device=dev)
-    return BatchAlign(err, torch.full_like(err, -1), yn, z, z.clone(),
-                      z.clone())
+    z = torch.zeros((3, B, XL), dtype=torch.uint8, device=dev)
+    return BatchAlign(err, torch.full_like(err, -1), yn, z[0], z[1], z[2])
 
 
 banded_forward.launches = 0

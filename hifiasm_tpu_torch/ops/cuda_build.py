@@ -2,8 +2,9 @@
 
 Each ``.cu`` source has a plain C interface.  ``nvcc`` compiles it for
 ``sm_90a`` into a shared library under the gitignored ``build/kernels``
-directory beside the package, named by a hash of the source so an edited
-kernel is rebuilt; the library is loaded with ``ctypes``.  ``build``
+directory beside the package, named by a hash of the source and the
+``csrc`` headers it includes, so an edited kernel or header is rebuilt;
+the library is loaded with ``ctypes``.  ``build``
 starts one ``nvcc`` per missing library, all at once.  A build that
 fails raises with the compiler's output: nothing falls back.
 """
@@ -13,9 +14,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,11 +40,29 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(fname: str, seen: List[str]) -> List[str]:
+    """``fname`` under ``CSRC`` and, depth first, every ``csrc`` file it
+    ``#include``s in quotes, each once."""
+    if fname not in seen:
+        seen.append(fname)
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                if os.path.exists(os.path.join(CSRC, inc.decode())):
+                    _sources(inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """The library's path, named by a hash of its source and every header
+    of ``csrc`` it includes, so an edited header rebuilds its kernels."""
+    h = hashlib.sha256()
+    for fname in _sources(SOURCES[name], []):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names=None) -> None:
@@ -80,6 +100,20 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(library_path(name))
     return lib
+
+
+def info(name: str) -> Dict[str, int]:
+    """Registers a thread, shared memory a block (bytes) and resident
+    blocks per SM of the kernel's build, from its ``<name>_info``."""
+    fn = getattr(load(name), f"{name}_info")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = fn(*map(ctypes.byref, vals))
+    if rc != 0:
+        raise RuntimeError(f"{name}_info failed: cudaError {rc}")
+    return dict(zip(("regs", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def dump_sass(out_dir: str) -> None:

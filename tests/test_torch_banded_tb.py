@@ -1,17 +1,23 @@
 """K1 of the PyTorch/CUDA port (hifiasm_tpu_torch/ops/banded_tb.py) against
 the JAX package: the plain PyTorch version must be bit-equal to the host
 oracle ``banded_batch_np`` and to the Pallas kernel in interpret mode, on
-every output (tolerance zero).  The CUDA kernel itself is held against
-the plain version on the card (``python3 chip_smoke.py``; the
-``cuda``-marked case below)."""
+every output (tolerance zero), for every checkpoint segment length ``rc``
+(the kernel's checkpoint + recompute + row-synchronous backward, which
+the card alone runs, has the plain version's structure).  The CUDA
+kernel itself is held against the plain version on the card
+(``python3 chip_smoke.py``; the ``cuda``-marked case below)."""
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import k1_stress
 from hifiasm_tpu.ops.banded_batch import banded_batch_np
 from hifiasm_tpu.ops.pallas_tb import pallas_banded_tb
-from hifiasm_tpu_torch.ops.banded_tb import banded_tb, banded_tb_torch
+from hifiasm_tpu_torch.ops import cuda_build
+from hifiasm_tpu_torch.ops.banded_tb import RC, banded_tb, banded_tb_torch
 from tests.test_pallas_tb import _problems
 
 
@@ -45,6 +51,101 @@ def test_plain_matches_oracle(XL, e, B):
     _assert_oracle(out, ref)
     if e == 31:
         assert (out[0] >= 0).sum() > 4 and (out[0] < 0).sum() > 0
+
+
+@pytest.mark.parametrize("rc", [1, 7, 16, 64, 101])
+@pytest.mark.parametrize("e", [7, 31])
+def test_plain_rc_matches_oracle(rc, e):
+    """Every segment length, XL = 96 (rc = 101 > XL: one segment), on
+    windows with xlen at multiples of rc and one either side (0 and XL
+    among them), insertion and deletion runs, ylen < xlen and dead
+    lanes."""
+    rng = np.random.default_rng(7 * rc + e)
+    x, xlen, y, ylen = k1_stress(rng, 150, 96, e, rc=min(rc, 96))
+    ref = banded_batch_np(x, xlen, y, ylen, e, traceback=True)
+    t = [torch.as_tensor(a) for a in (x, xlen, y, ylen)]
+    out = [o.numpy() for o in banded_tb_torch(*t, e, rc=rc)]
+    _assert_oracle(out, ref)
+    ok = ref.err >= 0
+    assert ok.sum() > 20 and (~ok).sum() > 0
+    lens = set(xlen.tolist())
+    assert {0, 96} <= lens and (ylen < xlen).any() and (ylen == 0).any()
+    if rc < 96:                      # lanes end on and beside a boundary
+        assert {rc - 1, rc, rc + 1} <= lens
+
+
+def test_insertion_run_and_first_base():
+    """A run of insertions longer than e/2 in one row: the bit scan takes
+    the whole run at once, ic counts it and ib is its first base."""
+    e, XL = 31, 160
+    rng = np.random.default_rng(4)
+    # x has no base 3, so the 3s can only be inserted, in one run after
+    # x[79]; its first base (1) differs from x around it
+    base = rng.integers(0, 3, XL).astype(np.uint8)
+    base[77:81] = 0
+    ins = np.array([1] + [3] * 19, np.uint8)
+    yfull = np.concatenate([base[:80], ins, base[80:],
+                            np.full(2 * e, 4, np.uint8)])[:XL + 2 * e]
+    x = base[None, :]
+    y = yfull[None, :]
+    xlen = np.array([XL], np.int32)
+    ylen = np.array([XL + len(ins)], np.int32)
+    ref = banded_batch_np(x, xlen, y, ylen, e, traceback=True)
+    for rc in (1, 16, 79, 80, 81):
+        t = [torch.as_tensor(a) for a in (x, xlen, y, ylen)]
+        out = [o.numpy() for o in banded_tb_torch(*t, e, rc=rc)]
+        _assert_oracle(out, ref)
+    assert ref.err[0] == len(ins)
+    assert np.flatnonzero(ref.ins_cnt[0]).tolist() == [79]
+    assert ref.ins_cnt[0, 79] == len(ins) and ref.ins_base[0, 79] == 1
+
+
+def test_out_matches_fresh_outputs():
+    """``out=`` fills the given tensors (row slices of larger ones, as
+    DeviceEC passes) with what a call without it returns."""
+    rng = np.random.default_rng(9)
+    e = 31
+    x, xlen, y, ylen = _problems(rng, 30, 96, e)
+    t = [torch.as_tensor(a) for a in (x, xlen.astype(np.int32), y,
+                                      ylen.astype(np.int32))]
+    ref = banded_tb(*t, e)
+    big = (torch.zeros(50, dtype=torch.int32), torch.zeros(50, dtype=torch.int32),
+           torch.zeros(50, dtype=torch.int32),
+           torch.zeros((50, 96), dtype=torch.uint8),
+           torch.zeros((50, 96), dtype=torch.uint8),
+           torch.zeros((50, 96), dtype=torch.uint8))
+    out = tuple(a[10:40] for a in big)
+    got = banded_tb(*t, e, out=out)
+    for a, b, o in zip(got, ref, out):
+        assert a is o and torch.equal(a, b)
+    assert all(not a[:10].any() and not a[40:].any() for a in big)
+    with pytest.raises(ValueError):
+        banded_tb(*t, e, out=out[:5])
+    with pytest.raises(TypeError):
+        banded_tb(*t, e, out=(out[0].long(),) + out[1:])
+    with pytest.raises(ValueError):
+        banded_tb(*t, e, out=out[:3] + (big[3][:30, :95],) + out[4:])
+
+
+def test_library_path_tracks_included_headers(tmp_path, monkeypatch):
+    """An edited csrc header renames (so rebuilds) every kernel library
+    that includes it; no nvcc needed."""
+    (tmp_path / "h.cuh").write_text("// h v1\n")
+    (tmp_path / "g.cuh").write_text('#include "h.cuh"\n')
+    (tmp_path / "a.cu").write_text('#include "g.cuh"\n#include <cstdint>\n')
+    (tmp_path / "b.cu").write_text("// no header\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "SOURCES", {"a": "a.cu", "b": "b.cu"})
+    pa, pb = cuda_build.library_path("a"), cuda_build.library_path("b")
+    assert os.path.basename(pa).startswith("a-")
+    (tmp_path / "h.cuh").write_text("// h v2\n")
+    assert cuda_build.library_path("a") != pa
+    assert cuda_build.library_path("b") == pb
+    # the real kernels both include the shared forward scan
+    monkeypatch.undo()
+    for n in ("banded_tb", "banded_fwd"):
+        assert "banded_myers.cuh" in cuda_build._sources(
+            cuda_build.SOURCES[n], [])
 
 
 def test_plain_matches_pallas_interpret():
@@ -85,6 +186,8 @@ def test_wrapper_rejects_bad_inputs():
         banded_tb(x, n[:3], y, n, 31)
     with pytest.raises(ValueError):
         banded_tb(x.t().contiguous().t(), n, y, n, 31)
+    with pytest.raises(ValueError):                # YL < XL + 2e
+        banded_tb(x, n, y[:, :157].contiguous(), n, 31)
 
 
 def test_cuda_request_without_card_raises():
@@ -105,10 +208,12 @@ def test_kernel_matches_plain_on_card():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(23)
     for XL, e in ((96, 31), (775, 31), (160, 8)):
-        x, xlen, y, ylen = _problems(rng, 300, XL, e)
-        t = [torch.as_tensor(a) for a in
-             (x, xlen.astype(np.int32), y, ylen.astype(np.int32))]
-        ref = banded_tb_torch(*t, e)
-        got = banded_tb(*[a.cuda() for a in t], e)
-        for a, b in zip(ref, got):
-            assert torch.equal(a, b.cpu())
+        for x, xlen, y, ylen in (_problems(rng, 300, XL, e),
+                                 k1_stress(rng, 300, XL, e, RC)):
+            t = [torch.as_tensor(a) for a in
+                 (x, xlen.astype(np.int32), y, ylen.astype(np.int32))]
+            ref = banded_tb_torch(*t, e)
+            got = banded_tb(*[a.cuda() for a in t], e)
+            for a, b in zip(ref, got):
+                assert torch.equal(a, b.cpu())
+
