@@ -17,10 +17,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    e = 31, 65,536 windows with ragged lengths and dead lanes): every
    output bit-equal; times of both (the wrapper's call), and the build's
    registers, shared memory and blocks per SM;
-3b. K2 (csrc/banded_fwd.cu) on the same windows through its own path,
-   the engine-shaped entry point ``banded_forward`` (no assembly path
-   calls it, as in the JAX package): bit-equal to its plain version and
-   to K1's err and y_end; times of both, and its occupancy;
+3b. K2 (csrc/banded_fwd.cu) on the same windows through its entry point
+   ``banded_forward``: bit-equal to its plain version and to K1's err
+   and y_end; times of both, and its occupancy;
 4. the main path end to end on the card: a synthetic 4 Mb genome, HiFi
    reads of 15 kb at 30x depth with 0.3% error (~120 Mb), the default
    3 EC rounds through ``assemble(..., device="cuda")``, whose EC rounds
@@ -29,7 +28,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    just after;
 5. card against plain end to end: a small store assembled with
    device="cuda" (device front end on) and with device="cpu" and
-   ``device_frontend=False`` gives byte-identical outputs.
+   ``device_frontend=False`` gives byte-identical outputs;
+6. the diploid modes on the card: a 2 x 2 Mb diploid (het rate 0.002),
+   HiFi reads of 15 kb at 15x per haplotype with 0.3% error (~60 Mb),
+   100,000 Hi-C pairs per haplotype (150 bp mates, 0.3% error) and yak
+   dumps of each haplotype, assembled twice with ``device="cuda"``: a
+   ``hic`` run, whose Hi-C seed-extend rescue must launch K2, and a
+   ``dip`` run; both must launch K1, give each haplotype 0.5-1.6x its
+   length, the hic run its scaffolds and the dip hap1 mostly paternal
+   reads; launch counts are zeroed just before each run and read after;
+6b. K2 at the rescue's shape (e = 8): the largest rescue batch of
+   phase 6 replayed, bit-equal to its plain version, timed, and bounded
+   by the function's work (K2's per-row counts, the free-end scan
+   scaled to 2e steps); also tiled to 131,072 rows;
+7. card against CPU for the new modes: a 16 kb diploid store with Hi-C
+   pairs, trio lists and yak dumps; a hic run (with the lists, so
+   bench.tsv too) and a dip run resumed from its EC checkpoint, on
+   cuda and on cpu: every output byte-identical.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -71,6 +86,11 @@ K1_BACK_ROW = (56.25, 15.375)
 K1_END = (1420, 196)
 K2_ROW = (47.0625, 5.0625)
 K2_END = (733, 8)
+# The bound at another e (the Hi-C rescue's e = 8) takes the same per-row
+# counts and scales the free-end scan to its 2e steps.  K2's any-e build
+# spends more (a runtime e); that is the build's overhead, not the
+# function's work, and PERF.md keeps its counts as a note.
+K2_END_STEPS = 62
 
 # the production shapes the gate runs at; a cut is recorded in PERF.md
 K1_WINDOWS = 65536          # one DeviceEC chunk of windows
@@ -221,11 +241,12 @@ def k1_bound(x, xlen, tb, e: int) -> dict:
 
 
 def k2_bound(x, xlen, e: int) -> dict:
-    """K2's work: the forward rows and the free-end scan per window; err
-    and y_end out."""
+    """K2's work: the forward rows and the free-end scan per window (its
+    e = 31 count scaled to 2e steps); err and y_end out."""
     B = x.shape[0]
+    end = tuple(c * 2 * e / K2_END_STEPS for c in K2_END)
     return _work(x, e, {"rows": _rows(x, xlen), "windows": B},
-                 {"rows": K2_ROW, "windows": K2_END}, B * 8)
+                 {"rows": K2_ROW, "windows": end}, B * 8)
 
 
 def _bound(rec: dict, work: dict) -> dict:
@@ -479,6 +500,295 @@ def phase_small(out_dir: str):
           "outputs byte-identical", flush=True)
 
 
+def _fastq(path, seqs):
+    nt = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "w") as f:
+        f.writelines(f"@p{i}\n{nt[s].tobytes().decode()}\n+\n{'I' * len(s)}\n"
+                     for i, s in enumerate(seqs))
+
+
+def _yak(path, hashes, count=20, k=31, pre=10):
+    """A yak dump (YAK\\2, 10-bit counters, 2^pre buckets; the layout
+    hifiasm_tpu_torch.trio reads) of ``hashes`` at ``count``, written
+    bucket by bucket from one stable sort."""
+    import struct
+
+    from hifiasm_tpu_torch.trio import YAK_COUNTER_BITS, YAK_MAGIC
+
+    h = np.unique(np.asarray(hashes, np.uint64))
+    bucket = (h & np.uint64((1 << pre) - 1)).astype(np.int64)
+    order = np.argsort(bucket, kind="stable")
+    keys = ((h[order] >> np.uint64(pre)) << np.uint64(YAK_COUNTER_BITS)) | \
+        np.uint64(min(count, (1 << YAK_COUNTER_BITS) - 1))
+    n = np.bincount(bucket, minlength=1 << pre)
+    off = np.concatenate([[0], np.cumsum(n)])
+    with open(path, "wb") as f:
+        f.write(YAK_MAGIC)
+        f.write(struct.pack("<3i", k, pre, YAK_COUNTER_BITS))
+        for b in range(1 << pre):
+            f.write(struct.pack("<2i", int(n[b]), int(n[b])))
+            keys[off[b]:off[b + 1]].astype("<u8").tofile(f)
+
+
+def diploid_inputs(out_dir, genome_len, depth, read_len, err, n_pairs,
+                   pair_err, seed):
+    """A diploid genome (``make_genome``, het rate 0.002), HiFi reads of
+    each haplotype (hap 1's first: the paternal ones), Hi-C pairs whose
+    150 bp mates both come from one haplotype at uniform positions with
+    errors injected at ``pair_err``, yak dumps of each haplotype's
+    31-mers at count 20 (-1/-2) and name lists of the reads (-3/-4).
+    Returns (store, n_paternal_reads, options by name)."""
+    from hifiasm_tpu_torch.io.readstore import ReadStore
+    from hifiasm_tpu_torch.phasing.hic import _seq_kmers
+
+    synth = _synth()
+    rng = np.random.default_rng(seed)
+    haps = synth.make_genome(rng, genome_len, het_rate=0.002)
+    reads = []
+    n_pat = 0
+    for h in haps:
+        reads += synth.sample_reads(rng, h, depth=depth, read_len=read_len,
+                                    err_rate=err)[0]
+        n_pat = n_pat or len(reads)
+    names = [f"r{i}" for i in range(len(reads))]
+    mates = ([], [])
+    for h in haps:
+        pos = rng.integers(0, genome_len - 150, (n_pairs, 2))
+        for a, b in pos:
+            mates[0].append(synth.inject_errors(rng, h[a:a + 150], pair_err))
+            mates[1].append(synth.inject_errors(rng, h[b:b + 150], pair_err))
+    f = [os.path.join(out_dir, f"hic_{i + 1}.fq") for i in range(2)]
+    for path, m in zip(f, mates):
+        _fastq(path, m)
+    y = [os.path.join(out_dir, f"{t}.yak") for t in ("pat", "mat")]
+    for path, h in zip(y, haps):
+        _yak(path, _seq_kmers(h, 31))
+    lst = [os.path.join(out_dir, f"{t}.txt") for t in ("pat", "mat")]
+    for path, part in zip(lst, (names[:n_pat], names[n_pat:])):
+        with open(path, "w") as fh:
+            fh.writelines(f"{n}\n" for n in part)
+    opts = {"hic": {"hic_reads_1": [f[0]], "hic_reads_2": [f[1]]},
+            "yak": {"fn_bin_yak_pat": y[0], "fn_bin_yak_mat": y[1]},
+            "lists": {"fn_bin_list_pat": lst[0], "fn_bin_list_mat": lst[1]}}
+    return ReadStore.from_arrays(names, reads), n_pat, opts
+
+
+def _gfa_total(path) -> int:
+    with open(path) as f:
+        return sum(len(ln.split("\t")[2]) for ln in f if ln.startswith("S\t"))
+
+
+class RescueCapture:
+    """Wraps phasing.hic.rescue_align during a run: keeps the inputs of
+    its largest call (the K2 batch phase 6b replays)."""
+
+    def __init__(self):
+        import hifiasm_tpu_torch.phasing.hic as H
+
+        self.H, self.orig, self.batch = H, H.rescue_align, None
+
+    def __enter__(self):
+        def wrapped(X, xl, Y, yl, e, device="cuda"):
+            if self.batch is None or len(X) > len(self.batch[0]):
+                self.batch = (X.copy(), xl.copy(), Y.copy(), yl.copy(), e)
+            return self.orig(X, xl, Y, yl, e, device)
+        self.H.rescue_align = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.H.rescue_align = self.orig
+
+
+def phase_diploid(out_dir: str, genome_len: int, depth: float,
+                  read_len: int, n_pairs: int):
+    """Phase 6: the diploid modes on the card.  The same reads assembled
+    twice with ``device="cuda"``: ``hic`` (--h1/--h2) and ``dip``
+    (-1/-2).  Each run must launch K1; the hic run must launch K2 inside
+    the Hi-C rescue; each hap's p_ctg must total 0.5-1.6x the haplotype;
+    ``hic.hap[12].scaf.fa`` must be written and not empty; the dip hap1
+    must hold more paternal reads than maternal.  Returns the K2 launch
+    count of the hic run, its largest rescue batch, and the stats."""
+    import torch
+
+    import hifiasm_tpu_torch.phasing.hic as H
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.ops.banded_fwd import banded_forward
+    from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+
+    t0 = time.time()
+    store, n_pat, opts = diploid_inputs(out_dir, genome_len, depth,
+                                        read_len, 0.003, n_pairs, 0.003, 13)
+    print(f"[diploid] {store.n_reads} reads ({n_pat} paternal), "
+          f"{store.total_bases} bases, 2 x {n_pairs} Hi-C pairs, yak dumps "
+          f"made in {time.time() - t0:.1f} s", flush=True)
+    out = {}
+    capture = None
+    for mode, kw in (("hic", opts["hic"]), ("dip", opts["yak"])):
+        pfx = os.path.join(out_dir, mode)
+        run_store = _copy_store(store)     # EC corrects a store in place
+        torch.cuda.reset_peak_memory_stats()
+        for k in H.STATS:
+            H.STATS[k] = 0
+        banded_tb.launches = 0
+        banded_forward.launches = 0
+        t0 = time.time()
+        with RescueCapture() as cap:
+            res = assemble(run_store, HifiasmConfig(
+                output_prefix=pfx, ignore_bin=True, **kw), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        k1, k2 = banded_tb.launches, banded_forward.launches
+        if k1 == 0:
+            raise AssertionError(f"the {mode} run launched no K1 kernel")
+        tot = [_gfa_total(f"{pfx}.{mode}.hap{h}.p_ctg.gfa") for h in (1, 2)]
+        for h, t in zip((1, 2), tot):
+            if not 0.5 * genome_len < t < 1.6 * genome_len:
+                raise AssertionError(
+                    f"{mode}.hap{h}.p_ctg totals {t} bp, not within "
+                    f"(0.5, 1.6) x the {genome_len} bp haplotype")
+        st = {"mode": mode, "wall_s": wall,
+              "bases_per_s": store.total_bases / wall, "k1_launches": k1,
+              "k2_launches": k2, "hap_p_ctg_bp": tot,
+              "stage_s": dict(res.stage_s),
+              "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        if mode == "hic":
+            if k2 == 0:
+                raise AssertionError("the hic run launched no K2 kernel in "
+                                     "the Hi-C rescue")
+            for h in (1, 2):
+                p = f"{pfx}.hic.hap{h}.scaf.fa"
+                if not os.path.exists(p) or os.path.getsize(p) == 0:
+                    raise AssertionError(f"{p} is missing or empty")
+            st["hic"] = dict(H.STATS)
+            capture = cap.batch
+            if capture is None:
+                raise AssertionError(
+                    "K2 launched but no rescue batch was captured: "
+                    "phasing.hic no longer calls rescue_align through the "
+                    "module global that RescueCapture replaces")
+        else:
+            with open(f"{pfx}.dip.hap1.p_ctg.gfa") as f:
+                rids = [int(ln.split("\t")[4][1:]) for ln in f
+                        if ln.startswith("A\t")]
+            pat = sum(1 for r in rids if r < n_pat)
+            st["hap1_reads"] = {"paternal": pat, "maternal": len(rids) - pat}
+            if pat <= len(rids) - pat:
+                raise AssertionError(f"dip.hap1 holds {pat} paternal and "
+                                     f"{len(rids) - pat} maternal reads")
+        print("[diploid] " + json.dumps(st), flush=True)
+        out[mode] = st
+    return out["hic"]["k2_launches"], capture, out
+
+
+def _copy_store(store):
+    """A fresh store of the same reads (EC rewrites a store in place)."""
+    from hifiasm_tpu_torch.io.readstore import ReadStore
+
+    return ReadStore.from_arrays(
+        list(store.names), [store.get_codes(i).copy()
+                            for i in range(store.n_reads)])
+
+
+def phase_k2_rescue(batch, launches: int, rec: dict):
+    """Phase 6b: K2 on the largest rescue batch that phase 6 sent it (e
+    = 8), bit-equal to its plain version on the card, both timed, with
+    its bound from the function's work; then the same rows tiled to
+    the most a rescue call can hold (2 x 65,536), timed alike.  Both go
+    into K2's record as shapes."""
+    import torch
+
+    from hifiasm_tpu_torch.ops.banded_fwd import (
+        banded_forward, banded_forward_torch,
+    )
+
+    X, xl, Y, yl, e = batch
+    saved = banded_forward.launches
+    shapes = []
+    for tag, reps in (("rescue", 1), ("rescue_tiled", None)):
+        idx = np.resize(np.arange(len(X)), len(X) * reps if reps else
+                        2 * 65536)
+        prob = (X[idx], xl[idx].astype(np.int32), Y[idx],
+                yl[idx].astype(np.int32))
+        args = [torch.as_tensor(np.ascontiguousarray(a)).cuda() for a in prob]
+        got = banded_forward(*args, e)
+        max_err = _equal(f"K2 ({tag}, e={e})", ("err", "y_end"),
+                         (got.err, got.y_end),
+                         banded_forward_torch(*args, e))
+        ms = _cuda_ms(lambda: banded_forward(*args, e), 5, 10)
+        plain_ms = _cuda_ms(lambda: banded_forward_torch(*args, e), 3)
+        work = k2_bound(prob[0], prob[1], e)
+        sh = _bound({"shape": tag, "e": e, "XL": int(X.shape[1]),
+                     "B": len(idx),
+                     "launches": launches if tag == "rescue" else 0,
+                     "max_abs_err": max_err, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": None}, work)
+        print(f"[k2-rescue] {tag}: XL={X.shape[1]} e={e} B={len(idx)}: "
+              f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {sh['bound_ms']:.5f} ms ({sh['bound_by']}: "
+              f"{json.dumps(work)})", flush=True)
+        shapes.append(sh)
+    banded_forward.launches = saved  # comparison launches do not count
+    rec["shapes"] = [{"shape": "ec_windows", "e": 31, "XL": 775,
+                      "B": K1_WINDOWS, "launches_own_path": 1,
+                      **{k: rec[k] for k in ("max_abs_err", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}}
+                     ] + shapes
+    rec["launches"] = launches
+    return rec
+
+
+def phase_diploid_small(out_dir: str):
+    """Phase 7: card against CPU for the new modes on a diploid store of
+    the JAX tests' size (16 kb, Hi-C pairs, yak dumps and name lists):
+    per device, a hic run with trio lists (hic.*, scaf.fa, bench.tsv)
+    and a dip run resumed from its EC checkpoint; every output of both
+    runs must be byte-identical between cuda and cpu."""
+    import shutil as sh
+
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.io.binfiles import checkpoint_paths
+
+    store, _, opts = diploid_inputs(out_dir, 16000, 13, 2000, 0.002, 800,
+                                    0.02, 11)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pa = os.path.join(out_dir, f"{dev}_hic")
+        assemble(_copy_store(store), HifiasmConfig(
+            output_prefix=pa, n_rounds_ec=1, ignore_bin=True,
+            **opts["hic"], **opts["lists"]), device=dev)
+        pb = os.path.join(out_dir, f"{dev}_dip")
+        for src, dst in zip(checkpoint_paths(pa), checkpoint_paths(pb)):
+            sh.copyfile(src, dst)
+        assemble(_copy_store(store), HifiasmConfig(
+            output_prefix=pb, n_rounds_ec=1, ignore_bin=False,
+            **opts["yak"]), device=dev)
+        runs[dev] = (pa, pb)
+    n = 0
+    for pa, pb in zip(runs["cuda"], runs["cpu"]):
+        ta, tb = os.path.basename(pa), os.path.basename(pb)
+        fa = sorted(f[len(ta):] for f in os.listdir(out_dir)
+                    if f.startswith(ta + "."))
+        fb = sorted(f[len(tb):] for f in os.listdir(out_dir)
+                    if f.startswith(tb + "."))
+        if fa != fb:
+            raise AssertionError(f"{ta} and {tb} wrote different files")
+        for suf in fa:
+            with open(pa + suf, "rb") as a, open(pb + suf, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{suf} differs between cuda "
+                                         f"and cpu")
+            n += 1
+        for must in (".hic.hap1.scaf.fa", ".bench.tsv", ".hic.p_ctg.gfa") \
+                if "hic" in ta else (".dip.hap1.p_ctg.gfa",):
+            if must not in fa or os.path.getsize(pa + must) == 0:
+                raise AssertionError(f"{ta}{must} missing or empty")
+    print(f"[diploid-small] cuda and cpu: all {n} outputs of the hic "
+          f"(+ trio lists) and dip runs byte-identical", flush=True)
+
+
 def phase_build():
     """Compile every CUDA kernel (nvcc) and the native host library (g++)
     at once; raise if any does not load."""
@@ -563,6 +873,13 @@ def main(argv) -> int:
     rec["launches"] = launches["banded_tb"]
     # 5. card against plain end to end
     phase_small(out_dir)
+    # 6. the diploid modes on the card, K2 in the Hi-C rescue
+    k2_launches, batch, _ = phase_diploid(out_dir, 2_000_000, 15.0, 15000,
+                                          100_000)
+    # 6b. K2 at the rescue's shape
+    phase_k2_rescue(batch, k2_launches, rec_k2)
+    # 7. card against CPU for the new modes
+    phase_diploid_small(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
 
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)

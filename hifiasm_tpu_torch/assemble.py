@@ -1,11 +1,14 @@
 """End-to-end assembly driver (the ``ha_assemble`` analog, Assembly.cpp:2055).
 
-The port of hifiasm_tpu/assemble.py for the default ``bp`` assembly of
-HiFi reads: filter table -> EC rounds on the device -> final overlap
-records -> string graph -> cleaning rounds -> unitigs -> purge -> GFA.
-The trio, ultralong, Hi-C, polyploid and scaffolding branches are not
-ported yet (ROADMAP.md Queue 1): a configuration that asks for one of
-them raises ``NotImplementedError`` before any work starts.
+The port of hifiasm_tpu/assemble.py: filter table -> EC rounds on the
+device -> final overlap records -> string graph -> cleaning rounds ->
+unitigs -> purge -> GFA, with the branches off ``bp`` that make the
+assembly haplotype-resolved: trio binning (``dip.*``), Hi-C phasing and
+scaffolding (``hic.*``, the seed-extend rescue on the device), polyploid
+output, ``--dual-scaf`` and the debug surfaces ``-e`` and
+``--dbg-het-cnt``.  Ultralong integration (``--ul``) is not ported yet
+(ROADMAP.md Queue 1): a configuration that asks for it raises
+``NotImplementedError`` before any work starts.
 """
 
 from __future__ import annotations
@@ -53,26 +56,11 @@ _UNPORTED = "is not ported to hifiasm_tpu_torch yet (ROADMAP.md Queue 1"
 
 
 def _check_ported(cfg: HifiasmConfig) -> None:
-    """Raise for every branch off the ``bp`` path that the port lacks."""
-    checks = (
-        (cfg.fn_bin_yak_pat or cfg.fn_bin_yak_mat or cfg.fn_bin_list_pat
-         or cfg.fn_bin_list_mat, "trio binning (-1/-2/-3/-4)",
-         "the branches off bp: trio"),
-        (cfg.ul_reads, "ultralong integration (--ul)",
-         "the branches off bp: UL"),
-        (cfg.hic_reads_1 or cfg.hic_reads_2, "Hi-C phasing (--h1/--h2)",
-         "the branches off bp: Hi-C"),
-        (cfg.polyploidy > 2 and not (cfg.purge_level == 0 or cfg.primary),
-         "polyploid output (--n-hap > 2)", "the branches off bp: polyploid"),
-        (cfg.dual_scaf, "scaffolding (--dual-scaf)",
-         "the branches off bp: scaffolding"),
-        (cfg.ex_list, "read tracing (-e/--ex-list)",
-         "the branches off bp: debug"),
-        (cfg.dbg_het_cnt, "--dbg-het-cnt", "the branches off bp: debug"),
-    )
-    for on, what, item in checks:
-        if on:
-            raise NotImplementedError(f"{what} {_UNPORTED}, {item})")
+    """Raise for the one branch off the ``bp`` path that the port lacks."""
+    if cfg.ul_reads:
+        raise NotImplementedError(
+            f"ultralong integration (--ul) {_UNPORTED}, the branches off "
+            f"bp: UL)")
 
 
 def clean_rounds(sg: StringGraph, cfg: HifiasmConfig,
@@ -181,6 +169,15 @@ def assemble(store: ReadStore, cfg: HifiasmConfig,
         # checkpoint bins (Overlaps.cpp:23585, inter.cpp:21639)
         log("assemble", "--bin-only: wrote checkpoint bins, stopping")
         return AssemblyResult(store, ec, None, None, None, None, None)
+    if cfg.dbg_het_cnt and write_outputs:
+        # --dbg-het-cnt: per-read het-evidence counts on the corrected
+        # reads -> <prefix>.het_cnt.log (~print_het_cnt_log,
+        # Assembly.cpp:968-978; counted on the last round there)
+        from hifiasm_tpu_torch.ec.pipeline import het_cnt_pass
+        hc = het_cnt_pass(store, cfg)
+        with open(f"{cfg.output_prefix}.het_cnt.log", "w") as f:
+            for i in range(store.n_reads):
+                f.write(f">{store.names[i]}\t{int(hc[i])}\n")
     if write_outputs and cfg.write_ec:
         _dump_ec_fasta(store, f"{cfg.output_prefix}.ec.fa")
     if write_outputs and cfg.write_paf:
@@ -194,8 +191,21 @@ def assemble(store: ReadStore, cfg: HifiasmConfig,
         log("assemble", "--dbg-ovec: wrote EC overlaps, stopping")
         return AssemblyResult(store, ec, None, None, None, None, None)
 
+    # trio binning (~ha_triobin call site, Assembly.cpp:2101);
+    # --skip-triobin parses the yak/list inputs but skips the binning
+    # (the reference parses HA_F_SKIP_TRIOBIN, CommandLines.cpp:918)
     if cfg.skip_triobin:
         log("assemble", "--skip-triobin: trio binning skipped")
+    elif (cfg.fn_bin_yak_pat and cfg.fn_bin_yak_mat) or \
+            (cfg.fn_bin_list_pat and cfg.fn_bin_list_mat):
+        from hifiasm_tpu_torch.trio import ha_triobin
+        t1 = time.time()
+        ha_triobin(store, cfg.fn_bin_yak_pat, cfg.fn_bin_yak_mat,
+                   cfg.min_cnt, cfg.mid_cnt,
+                   list_pat=cfg.fn_bin_list_pat,
+                   list_mat=cfg.fn_bin_list_mat)
+        _drop_edges_by_trio(ec.paf, store.trio_flags)
+        walls["trio_bin"] = time.time() - t1     # part of string_graph
 
     paf = normalize_paf(ec.paf, store.lens, rescue_el=cfg.is_ont)
     # per-read coverage = overlap-RECORD count (~2x the base depth:
@@ -249,6 +259,13 @@ def assemble(store: ReadStore, cfg: HifiasmConfig,
         # cleanups exposed (~the reference's post-join, CommandLines:126)
         from hifiasm_tpu_torch.graph.unitig import ug_post_join
         ug_post_join(ug, cov)
+
+    if (cfg.hic_reads_1 and cfg.hic_reads_2) or cfg.fn_bin_yak_pat or \
+            cfg.fn_bin_list_pat:
+        # flatten tiny nested bubbles before Hi-C / trio phasing
+        # (~hic_clean in the output paths, Overlaps.cpp:16250/17544)
+        from hifiasm_tpu_torch.graph.clean import hic_clean_ug
+        hic_clean_ug(ug)
 
     walls["clean_unitig"] = time.time() - t0
     t0 = time.time()
@@ -332,22 +349,34 @@ def assemble(store: ReadStore, cfg: HifiasmConfig,
                          raw_ug, walls)
     if write_outputs:
         t0 = time.time()
-        write_assembly_outputs(res, cfg)
+        write_assembly_outputs(res, cfg, device=dev)
         walls["write"] = time.time() - t0
     return res
 
 
-def write_assembly_outputs(res: AssemblyResult, cfg: HifiasmConfig) -> None:
+def write_assembly_outputs(res: AssemblyResult, cfg: HifiasmConfig,
+                           device="cuda") -> None:
     """File-name matrix follows the reference
-    (docs/source/interpreting-output.rst:16-41): the default mode prefixes
-    everything with ``bp.`` (the ``hic.`` and ``dip.`` modes are not
-    ported yet)."""
+    (docs/source/interpreting-output.rst:16-41): default mode prefixes
+    everything with ``bp.``, Hi-C with ``hic.``, trio with ``dip.``.
+    The Hi-C rescue runs K2 on ``device``; the wall seconds of the Hi-C
+    mapping, the phasing and the scaffolding (parts of the write stage)
+    go to ``res.stage_s`` as hic_map, phase and scaffold."""
     _check_ported(cfg)
+    dev = resolve_device(device)
+    walls = res.stage_s
+    for key in ("hic_map", "phase", "scaffold"):
+        walls[key] = 0.0
     prefix = cfg.output_prefix
     d = os.path.dirname(prefix)
     if d:
         os.makedirs(d, exist_ok=True)
     mode = "bp"
+    if cfg.hic_reads_1 and cfg.hic_reads_2:
+        mode = "hic"
+    elif (cfg.fn_bin_yak_pat and cfg.fn_bin_yak_mat) or \
+            (cfg.fn_bin_list_pat and cfg.fn_bin_list_mat):
+        mode = "dip"
     # -l0 or --primary: unprefixed p_ctg/a_ctg, no hap1/hap2 partition
     # (~CommandLines.cpp:947 clears HA_F_PARTITION; Overlaps.cpp:39156
     # drops the ".bp" prefix when the flag is absent)
@@ -381,6 +410,18 @@ def write_assembly_outputs(res: AssemblyResult, cfg: HifiasmConfig) -> None:
         from hifiasm_tpu_torch.graph.gfa import write_lowq_bed
         with open(f"{ctg_pfx}p_utg.lowQ.bed", "w") as f:
             write_lowq_bed(f, res.ug, res.cov, "utg")
+    if cfg.ex_list:
+        from hifiasm_tpu_torch.debug_trace import extract_print, trace_reads
+        with open(cfg.ex_list) as f:
+            names = [ln.split()[0] for ln in f if ln.strip()]
+        with open(f"{prefix}.trace.tsv", "w") as f:
+            trace_reads(res.store, cfg, names, f)
+        if cfg.extract_iter > 0:
+            # --ex-iter: BFS-expanded overlap dump (extract.cpp:165)
+            with open(f"{prefix}.extract.paf", "w") as f:
+                extract_print(res.store, res.ec.paf, res.ec.reverse_paf,
+                              names, cfg.extract_iter, f)
+
     prim_ids = (res.purge.primary if res.purge is not None
                 else list(range(len(res.ug))))
     alt_ids = list(res.purge.alternate) if res.purge is not None else []
@@ -418,23 +459,248 @@ def write_assembly_outputs(res: AssemblyResult, cfg: HifiasmConfig) -> None:
     # {mode}.hap1/hap2 (phased) outputs (~output_bp_graph / trio joint /
     # output_hic_graph when Hi-C reads are given)
     from hifiasm_tpu_torch.graph.hap_output import phase_unitigs
+    hic_links = None
+    if mode == "hic":
+        from hifiasm_tpu_torch.graph.unitig import unitig_seq
+        from hifiasm_tpu_torch.io.fastx import iter_fastx
+        from hifiasm_tpu_torch.io.readstore import seq_to_codes
+        from hifiasm_tpu_torch.phasing.hic import (
+            UnitigIndex, hic_link_matrix,
+        )
+
+        seqs = [unitig_seq(u, res.store, res.cov) for u in res.ug.utgs]
+        uidx = UnitigIndex.build(seqs)
+
+        def _pairs():
+            for f1, f2 in zip(cfg.hic_reads_1, cfg.hic_reads_2):
+                for (_, s1), (_, s2) in zip(iter_fastx(f1), iter_fastx(f2)):
+                    yield seq_to_codes(s1), seq_to_codes(s2)
+
+        # misjoin (switch-error) breaks before phasing
+        # (~update_switch_unitig, hic.cpp:17051; --l-msjoin)
+        from hifiasm_tpu_torch.graph.unitig import split_unitig
+        from hifiasm_tpu_torch.io.binfiles import load_hic_hits, save_hic_hits
+        from hifiasm_tpu_torch.phasing.hic import (
+            dedup_pe_hits, detect_switch_misjoins,
+            map_hic_pairs_pos_batch,
+        )
+
+        def _seq_fp(ss):
+            lens = np.array([len(s) for s in ss], np.int64)
+            return (f"hic:{len(ss)}:{int(lens.sum())}:"
+                    f"{int(np.bitwise_xor.reduce(lens * (np.arange(len(ss)) + 1))) if len(ss) else 0}")
+
+        def _mapped_hits(ss, idx):
+            # PE hit cache (~hic.cpp:5239 hic.lk.bin): keyed on the
+            # unitig sequence fingerprint, so post-break remaps get
+            # their own entry and stale caches recompute
+            fp = _seq_fp(ss)
+            if not cfg.ignore_bin:
+                cached = load_hic_hits(prefix, fp)
+                if cached is not None:
+                    return cached
+            t0 = time.time()
+            h = dedup_pe_hits(map_hic_pairs_pos_batch(
+                idx, _pairs(), utg_seqs=ss, device=dev))
+            walls["hic_map"] += time.time() - t0
+            save_hic_hits(prefix, h, fp)
+            return h
+
+        hits4 = _mapped_hits(seqs, uidx)
+        breaks = detect_switch_misjoins(
+            np.array([len(s) for s in seqs], np.int64), hits4,
+            misjoin_len=cfg.misjoin_len)
+        n_broken = sum(split_unitig(res.ug, u, p)
+                       for u, p in breaks.items())
+        if n_broken:
+            seq_cache.clear()         # split_unitig mutates paths in place
+            log("assemble", f"broke {n_broken} misjoined unitigs")
+            seqs = [unitig_seq(u, res.store, res.cov) for u in res.ug.utgs]
+            uidx = UnitigIndex.build(seqs)
+            ug_cov = np.array([
+                int(np.round(res.read_cov[(u.vs >> 1)].mean()))
+                if len(u.vs) else 0 for u in res.ug.utgs], np.int64)
+            hits4 = _mapped_hits(seqs, uidx)
+        # Hi-C-guided tangle resolution before phasing
+        # (~resolve_tangles_hic, hic.cpp:17069)
+        from hifiasm_tpu_torch.phasing.hic import resolve_tangles_hic
+        resolve_tangles_hic(res.ug, hits4)
+        seq_cache.clear()             # tangle resolution can rewire paths
+        hic_links = hic_link_matrix(
+            len(res.ug), hits4,
+            utg_lens=np.array([len(s) for s in seqs], np.int64),
+            sc_weight=not cfg.unskew)
+        from hifiasm_tpu_torch.trio import FATHER, MOTHER
+        tf = np.asarray(res.store.trio_flags)
+        if ((tf == FATHER) | (tf == MOTHER)).any():
+            # trio + Hi-C together: the reference switches to the Hi-C
+            # BENCHMARK mode (hic_benchmark, hic.cpp:18383; call gate
+            # Overlaps.cpp:39621) — trio labels ground-truth the Hi-C
+            # signal; we additionally keep the normal hic outputs
+            from hifiasm_tpu_torch.phasing.hic import hic_benchmark_eval
+            hap_of = np.zeros(len(res.ug), np.int8)
+            for uid, u in enumerate(res.ug.utgs):
+                fl = tf[(u.vs >> 1).astype(np.int64)]
+                n_p = int((fl == FATHER).sum())
+                n_m = int((fl == MOTHER).sum())
+                hap_of[uid] = 1 if n_p > n_m else (2 if n_m > n_p else 0)
+            hom: dict = {}
+            if res.purge is not None:
+                for a, b, _f in res.purge.hap_pairs:
+                    hom[int(a)] = int(b)
+                    hom[int(b)] = int(a)
+            with open(f"{prefix}.bench.tsv", "w") as f:
+                hic_benchmark_eval(hits4, hap_of, hom, f)
+        hic_seqs, hic_hits4 = seqs, hits4
     hap1_ids, hap2_ids = [], []
-    if not primary_mode:
+    if not primary_mode and cfg.polyploidy > 2:
+        # polyploid: k-hap labeling (~output_poly_trio, Overlaps.cpp:14682)
+        from hifiasm_tpu_torch.graph.hap_output import phase_unitigs_k
+        from hifiasm_tpu_torch.graph.gfa import _useq
+        t0 = time.time()
+        groups = phase_unitigs_k(res.ug, res.ec.reverse_paf,
+                                 res.store.n_reads, cfg.polyploidy,
+                                 n_perturb=cfg.n_perturb,
+                                 f_perturb=cfg.f_perturb, seed=cfg.seed,
+                                 hic_links=hic_links,
+                                 utg_seqs=[
+                                     _useq(u, res.store, res.cov,
+                                           seq_cache)
+                                     for u in res.ug.utgs])
+        walls["phase"] += time.time() - t0
+        for h, ids in enumerate(groups):
+            hg = _sub_ug(res.ug, ids)
+            ug_post_join(hg, res.cov)
+            _gfa(f"{prefix}.{mode}.hap{h + 1}.p_ctg.gfa", hg,
+                 f"h{h + 1}tg", _recov(hg) if len(hg.utgs) else None)
+        hap1_ids, hap2_ids = groups[0], groups[1]
+    elif not primary_mode:
+        t0 = time.time()
         hap1_ids, hap2_ids = phase_unitigs(
             res.ug, res.ec.reverse_paf, res.store.n_reads,
             trio_flags=res.store.trio_flags, n_perturb=cfg.n_perturb,
-            f_perturb=cfg.f_perturb, seed=cfg.seed, hic_links=None,
+            f_perturb=cfg.f_perturb, seed=cfg.seed, hic_links=hic_links,
             trio_occ_thres=cfg.trio_flag_occ_thres,
             trio_dual=cfg.trio_dual)
+        walls["phase"] += time.time() - t0
         for name, ids in (("hap1", hap1_ids), ("hap2", hap2_ids)):
             hg = _sub_ug(res.ug, ids)
             ug_post_join(hg, res.cov)
             _gfa(f"{prefix}.{mode}.{name}.p_ctg.gfa", hg,
                  f"h{name[-1]}tg", _recov(hg) if len(hg.utgs) else None)
+        if mode == "dip" and cfg.kpt_rate > 0:
+            # --kpt-rate: extra ".kdp" graph of unitigs mostly UNUSED by
+            # either haplotype output — a unitig is dropped when its
+            # fraction of hap-used reads reaches the rate
+            # (~filter_set_kug, Overlaps.cpp:21286: flag_occ >=
+            # u.n * f_rate deletes; the remainder prints to "%s.kdp")
+            used_reads = set()
+            for ids in (hap1_ids, hap2_ids):
+                for i in ids:
+                    used_reads.update(
+                        (res.ug.utgs[i].vs >> 1).astype(np.int64).tolist())
+            kdp_ids = []
+            for i, u in enumerate(res.ug.utgs):
+                rs = (u.vs >> 1).astype(np.int64)
+                if len(rs) == 0:
+                    continue
+                occ = sum(1 for r in rs if int(r) in used_reads)
+                if not (occ == len(rs) or occ >= len(rs) * cfg.kpt_rate):
+                    kdp_ids.append(i)
+            kg = _sub_ug(res.ug, kdp_ids)
+            ug_post_join(kg, res.cov)
+            _gfa(f"{prefix}.kdp.p_ctg.gfa", kg, "ptg",
+                 _recov(kg) if len(kg.utgs) else None)
+            log("assemble", f"--kpt-rate: {len(kdp_ids)} unused unitigs "
+                f"-> {prefix}.kdp.p_ctg.gfa")
+        if mode == "hic" and not cfg.dual_scaf:
+            # Hi-C scaffolding per haplotype (~ha_aware_order,
+            # horder.cpp:4540): positioned PE hits -> end-proximity
+            # order graph -> iterative join + weak-junction break rounds
+            # (scaffold_ug/renew_scaffold horder.cpp:3871/:3790); hap1's
+            # accepted layout seeds hap2's weights through the
+            # purge homolog pairing (the trans-index hap-aware hook)
+            from hifiasm_tpu_torch.io.readstore import codes_to_seq
+            from hifiasm_tpu_torch.phasing.horder import (
+                iterative_scaffold, scaffold_priors, scaffold_seqs,
+            )
+            lens_all = np.array([len(s) for s in hic_seqs], np.int64)
+            homolog_g: dict = {}
+            if res.purge is not None:
+                for a, b, _frac in res.purge.hap_pairs:
+                    homolog_g[int(a)] = int(b)
+                    homolog_g[int(b)] = int(a)
+            prior = None
+            for name, ids in (("hap1", hap1_ids), ("hap2", hap2_ids)):
+                idset = {int(i): k for k, i in enumerate(ids)}
+                sub_hits = [
+                    (idset[int(u1)], int(p1), idset[int(u2)], int(p2))
+                    for u1, p1, u2, p2 in hic_hits4
+                    if int(u1) in idset and int(u2) in idset]
+                sub_lens = lens_all[np.asarray(ids, np.int64)] \
+                    if ids else np.zeros(0, np.int64)
+                t0 = time.time()
+                scafs = iterative_scaffold(len(ids), sub_lens, sub_hits,
+                                           rounds=3, prior=prior)
+                walls["scaffold"] += time.time() - t0
+                # hap-aware transfer into the next hap's local id space
+                prior = None
+                if homolog_g and name == "hap1":
+                    other = {int(i): k for k, i in enumerate(hap2_ids)}
+                    hmap = {idset[int(i)]: other[homolog_g[int(i)]]
+                            for i in ids
+                            if int(i) in homolog_g
+                            and homolog_g[int(i)] in other}
+                    prior = scaffold_priors(scafs, hmap)
+                sseqs = scaffold_seqs(scafs, [hic_seqs[i] for i in ids])
+                with open(f"{prefix}.hic.{name}.scaf.fa", "w") as f:
+                    for i, s in enumerate(sseqs):
+                        f.write(f">scaf{name}_{i + 1:06d}\n"
+                                f"{codes_to_seq(s).decode()}\n")
+
+    if cfg.dual_scaf:
+        from hifiasm_tpu_torch.graph.unitig import unitig_seq
+        from hifiasm_tpu_torch.io.readstore import codes_to_seq
+        from hifiasm_tpu_torch.phasing.horder import scaffold_seqs
+        from hifiasm_tpu_torch.phasing.selfscaf import self_scaffold
+
+        seqs = [unitig_seq(u, res.store, res.cov) for u in res.ug.utgs]
+        for name, own, other in (("hap1", hap1_ids, hap2_ids),
+                                 ("hap2", hap2_ids, hap1_ids)):
+            t0 = time.time()
+            scafs = self_scaffold(res.ug, res.ec.reverse_paf,
+                                  res.store.n_reads, own, other,
+                                  gap_max=cfg.scaf_gap_max)
+            walls["scaffold"] += time.time() - t0
+            sseqs = scaffold_seqs(scafs, seqs)
+            with open(f"{prefix}.{mode}.{name}.scaf.fa", "w") as f:
+                for i, s in enumerate(sseqs):
+                    f.write(f">scaf{name}_{i + 1:06d}\n"
+                            f"{codes_to_seq(s).decode()}\n")
     log("assemble",
         f"wrote {prefix}.{mode}.[rp]_utg / .{mode}.p_ctg / {mode}.hap[12] "
         f"({len(prim_ids)} primary, {len(alt_ids)} alternate, "
         f"{len(hap1_ids)}+{len(hap2_ids)} hap contigs)")
+
+
+def _drop_edges_by_trio(paf, trio_flags) -> None:
+    """Remove overlaps connecting opposite-haplotype reads
+    (~drop_edges_by_trio, Overlaps.cpp:39369)."""
+    from hifiasm_tpu_torch.trio import FATHER, MOTHER
+
+    n_drop = 0
+    for rid in range(len(paf)):
+        rec = paf[rid]
+        if len(rec) == 0:
+            continue
+        fq = trio_flags[rid]
+        ft = trio_flags[rec.tn.astype(np.int64)]
+        bad = ((fq == FATHER) & (ft == MOTHER)) | \
+              ((fq == MOTHER) & (ft == FATHER))
+        if bad.any():
+            paf[rid] = rec.take(np.flatnonzero(~bad))
+            n_drop += int(bad.sum())
+    log("drop_edges_by_trio", f"dropped {n_drop} cross-hap overlaps")
 
 
 def _dump_ec_fasta(store: ReadStore, path: str) -> None:

@@ -1,9 +1,9 @@
 """Command-line interface (~CommandLines.cpp:18-86 ketopt table).
 
 The option surface of hifiasm_tpu/cli.py plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain PyTorch path).  Options of branches the
-port has not reached yet (trio, Hi-C, UL, polyploid, scaffolding) parse
-as before and raise ``NotImplementedError`` when the assembly starts.
+``cuda``; ``cpu`` runs the plain PyTorch path).  The UL options, whose
+branch the port has not reached yet, parse as before and raise
+``NotImplementedError`` when the assembly starts.
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ decisions.  There is no size gate and no host-engine branch: ``ec_round``
 always takes the device branch on the given device.  The one host step
 inside a round is by design: reads whose vote planes show an ambiguity
 cluster re-run on the host DAG path (traceback strings -> plurality),
-and their count is logged.
+and their count is logged.  The ``--dbg-het-cnt`` debug pass
+(``het_cnt_pass``) runs on the host, as in the JAX package.
 
 Re-expresses ``cal_ec_r`` / ``worker_hap_ec`` / ``sl_ec_r``
 (ecovlp.cpp:6268, :3234, :6410) and the final overlap records
@@ -311,6 +312,56 @@ def final_overlap_pass(store: ReadStore, cfg: HifiasmConfig,
     log("final_overlap_pass",
         f"{paf.total} cis + {rev_paf.total} trans overlaps")
     return ECResult(paf, rev_paf, hom_cov, peak_het)
+
+
+def _iter_overlap_batches(store: ReadStore, codes, mzs, pt, cfg, hom_cov,
+                          e_rate: float, get_target):
+    """Yield batches of (rid, q, ov, tbs) with windows aligned per batch.
+
+    Pass 1 of each batch chains anchors and plans window jobs; one flush
+    runs ALL windows of the batch through the host alignment engine (the
+    native job path, else numpy); pass 2 yields the whole batch."""
+    from hifiasm_tpu_torch.ec.window_align import WindowBatcher
+    from hifiasm_tpu_torch.overlap.anchors import (
+        chain_many, collect_anchors_many,
+    )
+
+    cp = ChainParams.for_k(cfg.k)
+    bs = max(1, cfg.read_batch)
+    for b0 in range(0, store.n_reads, bs):
+        rids = list(range(b0, min(b0 + bs, store.n_reads)))
+        wb = WindowBatcher(get_target, e_rate, wl=cfg.ec_window)
+        ans = collect_anchors_many(mzs, pt, rids, store.lens, hom_cov)
+        anchors = [(rid, an, len(codes[rid]))
+                   for rid, an in zip(rids, ans)]
+        ovs = chain_many(anchors, store.lens, cp,
+                         max_n_chain=cfg.max_n_chain)
+        planned = [(rid, codes[rid], ov, wb.add_read(codes[rid], ov))
+                   for (rid, _, _), ov in zip(anchors, ovs)]
+        wb.flush()
+        yield planned
+
+
+def het_cnt_pass(store: ReadStore, cfg: HifiasmConfig) -> np.ndarray:
+    """--dbg-het-cnt: per-read confirmed het-SNP counts over the
+    corrected reads (~get_het_cnt on the last EC round,
+    Assembly.cpp:584,1014; dumped by print_het_cnt_log :968).  Runs the
+    host phase path, as the JAX package does whatever its engine: it is
+    a debug surface, and the engines are record-identical."""
+    codes = [store.get_codes(i) for i in range(store.n_reads)]
+    pt, peak_hom, _, mzs = build_position_table(
+        codes, cfg.k, cfg.w, min_hist_cnt=cfg.min_hist_kmer_cnt,
+        keep_max=min(cfg.max_kmer_cnt, 4095))
+    hom_cov = peak_hom if peak_hom > 0 else cfg.hom_cov
+    out = np.zeros(store.n_reads, np.int64)
+    get_target = _TargetCache(store)
+    for batch in _iter_overlap_batches(
+            store, codes, mzs, pt, cfg, hom_cov, cfg.max_ov_diff_ec,
+            get_target):
+        for rid, q, ov, tbs in batch:
+            out[rid] = len(phase_overlaps(q, ov, tbs).het_sites)
+    log("het_cnt_pass", f"het counts for {store.n_reads} reads")
+    return out
 
 
 def _edit_cum_table(edits_map: dict, n_reads: int):

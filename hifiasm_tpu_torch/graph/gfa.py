@@ -19,13 +19,16 @@ from hifiasm_tpu_torch.io.readstore import ReadStore, codes_to_seq
 
 def _useq(u, store, cov, seq_cache):
     """unitig_seq with an optional caller-scoped memo (one output phase
-    writes the same unitigs into several GFA/FASTA siblings)."""
+    writes the same unitigs into several GFA/FASTA siblings).  An entry
+    holds its unitig, so that no unitig made later (``ug_post_join``
+    frees the ones it merges) can take the same id and be served its
+    sequence."""
     if seq_cache is None:
         return unitig_seq(u, store, cov)
-    seq = seq_cache.get(id(u))
-    if seq is None:
-        seq = seq_cache[id(u)] = unitig_seq(u, store, cov)
-    return seq
+    hit = seq_cache.get(id(u))
+    if hit is None:
+        hit = seq_cache[id(u)] = (u, unitig_seq(u, store, cov))
+    return hit[1]
 
 
 def write_gfa(f: IO[str], ug: UnitigGraph, store: ReadStore,

@@ -9,7 +9,7 @@ smaller unitig in the larger one.
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -225,6 +225,53 @@ def confirm_purge_pairs(utg_seqs: List[np.ndarray], pairs,
     return out
 
 
+def _utg_adj(ug) -> Dict[int, List[Tuple[int, int]]]:
+    """vertex -> sorted [(dst_vertex, overlap)] (deterministic order).
+    This helper and ``_reach_starts`` are the JAX package's ul.py ones,
+    kept here for the purge-pair filter below."""
+    adj: Dict[int, List[Tuple[int, int]]] = {}
+    for s, d, ol in zip(ug.a_src, ug.a_dst, ug.a_ol):
+        adj.setdefault(int(s), []).append((int(d), int(ol)))
+    for v in adj:
+        adj[v].sort()
+    return adj
+
+
+def _reach_starts(adj, utg_lens, src_v: int, cap: int,
+                  max_nodes: int = 64):
+    """Bounded deterministic Dijkstra from the END of oriented unitig
+    ``src_v``: returns {dst_vertex: (dist_to_its_start, prev_vertex)}
+    with distances measured in bases past src's end (an arc with overlap
+    ``ol`` places the next unitig's start at -ol relative to the current
+    end).  The graph half of the reference's ``hc_shortest_k``
+    (inter.cpp:5904) with the same distance cap semantics."""
+    import heapq
+
+    d_start: Dict[int, Tuple[int, int]] = {}
+    seen_end: Dict[int, int] = {}
+    heap = []
+    for w, ol in adj.get(src_v, []):
+        ds = -ol
+        if ds <= cap and (w not in d_start or ds < d_start[w][0]):
+            d_start[w] = (ds, -1)
+            heapq.heappush(heap, (ds + int(utg_lens[w >> 1]), w))
+    n_pop = 0
+    while heap and n_pop < max_nodes:
+        de, v = heapq.heappop(heap)
+        if seen_end.get(v, 1 << 62) <= de:
+            continue
+        seen_end[v] = de
+        n_pop += 1
+        for w, ol in adj.get(v, []):
+            ds = de - ol
+            if ds > cap:
+                continue
+            if w not in d_start or ds < d_start[w][0]:
+                d_start[w] = (ds, v)
+                heapq.heappush(heap, (ds + int(utg_lens[w >> 1]), w))
+    return d_start
+
+
 def drop_graph_close_pairs(ug, cand: dict) -> dict:
     """Drop trans-overlap candidates whose partner is graph-REACHABLE
     from the query unitig within the query's own length
@@ -233,8 +280,6 @@ def drop_graph_close_pairs(ug, cand: dict) -> dict:
     (an adjacent repeat), not a homolog pair.  The walk is directed on
     oriented unitig ends, so parallel bubble branches (true homologs)
     stay unreachable and are kept."""
-    from hifiasm_tpu_torch.ul import _reach_starts, _utg_adj
-
     if not cand:
         return cand
     adj = _utg_adj(ug)

@@ -13,8 +13,9 @@ kernel or raises.
 It computes the err and y_end of ``banded_batch_np(..., traceback=False)``:
 x aligns globally against y with the y start free in [0, 2e] and the y
 end free in [xlen, xlen + 2e], preferring the centre diagonal on a tie;
-err is -1 past ``e`` errors.  No assembly path calls it, as in the JAX
-package, where only its tests do.
+err is -1 past ``e`` errors.  Its assembly path is the Hi-C seed-extend
+rescue (phasing/hic.rescue_align, e = 8), which in the JAX package calls
+``banded_batch_np`` on the host for the same err.
 """
 
 from __future__ import annotations

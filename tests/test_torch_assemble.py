@@ -147,14 +147,23 @@ def repeat_runs(tmp_path_factory):
 
 
 def test_unported_branches_raise(tmp_path):
+    """--ul, the one branch off bp still to port, raises before any work
+    starts, alone or beside the ported branches, from assemble and from
+    the CLI."""
+    from hifiasm_tpu_torch.cli import main
+
     names, reads = _reads()
     store = ReadStore.from_arrays(names[:3], reads[:3])
-    for kw in ({"ul_reads": ["u.fa"]}, {"hic_reads_1": ["a.fq"]},
-               {"fn_bin_yak_pat": "p.yak", "fn_bin_yak_mat": "m.yak"},
-               {"polyploidy": 3}, {"dual_scaf": True}):
+    for kw in ({"ul_reads": ["u.fa"]},
+               {"ul_reads": ["u.fa"], "hic_reads_1": ["a.fq"],
+                "hic_reads_2": ["b.fq"]},
+               {"ul_reads": ["u.fa"], "dual_scaf": True}):
         cfg = _port_cfg(str(tmp_path / "x"), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*UL"):
             assemble(store, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="--ul"):
+        main(["-o", str(tmp_path / "x"), "--ul", "u.fa", "--device", "cpu",
+              "reads.fa"])
     assert not os.listdir(tmp_path)
 
 

@@ -30,6 +30,11 @@ store = ReadStore.from_arrays([f"r{i}" for i in range(len(reads))], reads)
 res = assemble(store, HifiasmConfig(output_prefix=sys.argv[2], n_rounds_ec=1,
                                     ignore_bin=True), device="cpu")
 assert res.ug is not None
+import importlib, pkgutil
+for m in pkgutil.walk_packages(hifiasm_tpu_torch.__path__,
+                               "hifiasm_tpu_torch."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "hifiasm_tpu" or k.startswith("hifiasm_tpu."))
 print("BAD" if bad else "CLEAN", bad)
