@@ -44,7 +44,23 @@ Phases, in order; any failure raises and the script exits nonzero:
 7. card against CPU for the new modes: a 16 kb diploid store with Hi-C
    pairs, trio lists and yak dumps; a hic run (with the lists, so
    bench.tsv too) and a dip run resumed from its EC checkpoint, on
-   cuda and on cpu: every output byte-identical.
+   cuda and on cpu: every output byte-identical;
+8. the UL mode on the card: a 2 Mb genome with four copies of a 20 kb
+   segment, HiFi reads of 15 kb at 20x with 0.3% error (40 Mb) and
+   ONT-like UL reads (log-normal lengths, mean 100 kb, clipped to
+   50-200 kb, 8x, both strands, 5% error as run-stretching insertions,
+   deletions and substitutions) passed as ``--ul``, assembled with
+   ``device="cuda"``; it must launch K1, launch K2 in the UL screen
+   (``ul.ul_band_err``) at most once per mapping pass per 65,536 rows,
+   map at least half of the UL reads and give a p_ctg of 0.8-1.3x the
+   genome; then the same reads without ``--ul``, resumed from the UL
+   run's EC checkpoint, for the contig count and N50 beside it;
+8b. card against CPU for UL: the two UL end-to-end test scenarios
+   (tests/test_ul_assembly.py, tests/test_ul_gapfill.py) on cuda and
+   on cpu: every output byte-identical, K2 launched in the cuda runs;
+8c. K2 at the UL shapes: the largest screen batch (e = 15) and the
+   largest junction batch of phase 8 replayed, bit-equal to the plain
+   version, timed and bounded; the screen rows also tiled to 131,072.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -690,12 +706,11 @@ def _copy_store(store):
                             for i in range(store.n_reads)])
 
 
-def phase_k2_rescue(batch, launches: int, rec: dict):
-    """Phase 6b: K2 on the largest rescue batch that phase 6 sent it (e
-    = 8), bit-equal to its plain version on the card, both timed, with
-    its bound from the function's work; then the same rows tiled to
-    the most a rescue call can hold (2 x 65,536), timed alike.  Both go
-    into K2's record as shapes."""
+def _k2_shape(tag: str, batch, rows: int, launches: int, log: str) -> dict:
+    """K2 on a captured batch (X, xl, Y, yl, e) with its rows cycled to
+    ``rows``: bit-equal to its plain version on the card, both timed,
+    with its bound from the function's work; a shape of K2's record.
+    The comparison's launches are not counted."""
     import torch
 
     from hifiasm_tpu_torch.ops.banded_fwd import (
@@ -704,31 +719,36 @@ def phase_k2_rescue(batch, launches: int, rec: dict):
 
     X, xl, Y, yl, e = batch
     saved = banded_forward.launches
-    shapes = []
-    for tag, reps in (("rescue", 1), ("rescue_tiled", None)):
-        idx = np.resize(np.arange(len(X)), len(X) * reps if reps else
-                        2 * 65536)
-        prob = (X[idx], xl[idx].astype(np.int32), Y[idx],
-                yl[idx].astype(np.int32))
-        args = [torch.as_tensor(np.ascontiguousarray(a)).cuda() for a in prob]
-        got = banded_forward(*args, e)
-        max_err = _equal(f"K2 ({tag}, e={e})", ("err", "y_end"),
-                         (got.err, got.y_end),
-                         banded_forward_torch(*args, e))
-        ms = _cuda_ms(lambda: banded_forward(*args, e), 5, 10)
-        plain_ms = _cuda_ms(lambda: banded_forward_torch(*args, e), 3)
-        work = k2_bound(prob[0], prob[1], e)
-        sh = _bound({"shape": tag, "e": e, "XL": int(X.shape[1]),
-                     "B": len(idx),
-                     "launches": launches if tag == "rescue" else 0,
-                     "max_abs_err": max_err, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": None}, work)
-        print(f"[k2-rescue] {tag}: XL={X.shape[1]} e={e} B={len(idx)}: "
-              f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {sh['bound_ms']:.5f} ms ({sh['bound_by']}: "
-              f"{json.dumps(work)})", flush=True)
-        shapes.append(sh)
-    banded_forward.launches = saved  # comparison launches do not count
+    idx = np.resize(np.arange(len(X)), rows)
+    prob = (X[idx], xl[idx].astype(np.int32), Y[idx],
+            yl[idx].astype(np.int32))
+    args = [torch.as_tensor(np.ascontiguousarray(a)).cuda() for a in prob]
+    got = banded_forward(*args, e)
+    max_err = _equal(f"K2 ({tag}, e={e})", ("err", "y_end"),
+                     (got.err, got.y_end), banded_forward_torch(*args, e))
+    ms = _cuda_ms(lambda: banded_forward(*args, e), 5, 10)
+    plain_ms = _cuda_ms(lambda: banded_forward_torch(*args, e), 3)
+    banded_forward.launches = saved
+    work = k2_bound(prob[0], prob[1], e)
+    sh = _bound({"shape": tag, "e": e, "XL": int(X.shape[1]), "B": rows,
+                 "launches": launches, "max_abs_err": max_err, "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": None}, work)
+    print(f"[{log}] {tag}: XL={X.shape[1]} e={e} B={rows}: "
+          f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {sh['bound_ms']:.5f} ms ({sh['bound_by']}: "
+          f"{json.dumps(work)})", flush=True)
+    return sh
+
+
+def phase_k2_rescue(batch, launches: int, rec: dict):
+    """Phase 6b: K2 on the largest rescue batch that phase 6 sent it (e
+    = 8), bit-equal to its plain version on the card, both timed, with
+    its bound from the function's work; then the same rows tiled to
+    the most a rescue call can hold (2 x 65,536), timed alike.  Both go
+    into K2's record as shapes."""
+    shapes = [_k2_shape("rescue", batch, len(batch[0]), launches,
+                        "k2-rescue"),
+              _k2_shape("rescue_tiled", batch, 2 * 65536, 0, "k2-rescue")]
     rec["shapes"] = [{"shape": "ec_windows", "e": 31, "XL": 775,
                       "B": K1_WINDOWS, "launches_own_path": 1,
                       **{k: rec[k] for k in ("max_abs_err", "ms",
@@ -787,6 +807,260 @@ def phase_diploid_small(out_dir: str):
                 raise AssertionError(f"{ta}{must} missing or empty")
     print(f"[diploid-small] cuda and cpu: all {n} outputs of the hic "
           f"(+ trio lists) and dip runs byte-identical", flush=True)
+
+
+def ont_ul_reads(rng, genome, depth: float, mean: int = 100_000,
+                 lo: int = 50_000, hi: int = 200_000, err: float = 0.05):
+    """ONT-like ultralong reads of ``genome`` to ``depth``: log-normal
+    lengths with mean ``mean`` (sigma 0.5) clipped to [lo, hi], uniform
+    starts, either strand, and ``err`` errors drawn in one vectorised
+    pass per read: 40% run-stretching insertions (a base doubled), 30%
+    deletions, 30% substitutions."""
+    sigma = 0.5
+    mu = np.log(mean) - sigma * sigma / 2
+    reads, total = [], 0
+    while total < depth * len(genome):
+        n = int(np.clip(rng.lognormal(mu, sigma), lo, hi))
+        p = int(rng.integers(0, len(genome) - n + 1))
+        s = genome[p:p + n].copy()
+        if rng.integers(0, 2):
+            s = (3 - s[::-1]) & 3
+        u = rng.random(n)
+        sub = u < 0.3 * err
+        s[sub] = (s[sub] + rng.integers(1, 4, int(sub.sum()))) & 3
+        rep = np.ones(n, np.int64)
+        rep[(u >= 0.3 * err) & (u < 0.6 * err)] = 0
+        rep[(u >= 0.6 * err) & (u < err)] = 2
+        reads.append(np.repeat(s, rep).astype(np.uint8))
+        total += n
+    return reads
+
+
+def _fasta(path, seqs):
+    nt = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "w") as f:
+        f.writelines(f">u{i}\n{nt[s].tobytes().decode()}\n"
+                     for i, s in enumerate(seqs))
+
+
+class ULCapture:
+    """Wraps ul._score_rows and ul.ul_band_err during a run: keeps the
+    largest screen and junction batches (the K2 batches phase 8c
+    replays) and counts the K2 launches made from each site."""
+
+    def __init__(self):
+        import hifiasm_tpu_torch.ul as U
+
+        self.U, self.kind = U, None
+        self.batch = {"screen": None, "junction": None}
+        self.k2 = {"screen": 0, "junction": 0}
+
+    def __enter__(self):
+        from hifiasm_tpu_torch.ops.banded_fwd import banded_forward
+
+        self.orig = score, band = self.U._score_rows, self.U.ul_band_err
+
+        def score_rows(rows, e, device, kind):
+            self.kind = kind
+            return score(rows, e, device, kind)
+
+        def band_err(X, xl, Y, yl, e, device="cuda"):
+            b = self.batch[self.kind]
+            if b is None or len(X) > len(b[0]):
+                self.batch[self.kind] = (X.copy(), xl.copy(), Y.copy(),
+                                         yl.copy(), e)
+            n0 = banded_forward.launches
+            out = band(X, xl, Y, yl, e, device)
+            self.k2[self.kind] += banded_forward.launches - n0
+            return out
+        self.U._score_rows, self.U.ul_band_err = score_rows, band_err
+        return self
+
+    def __exit__(self, *exc):
+        self.U._score_rows, self.U.ul_band_err = self.orig
+
+
+def phase_ul(out_dir: str, genome_len: int, depth: float, read_len: int,
+             ul_depth: float):
+    """Phase 8: the UL mode on the card.  A genome with four copies of a
+    segment longer than a HiFi read, HiFi reads and ONT-like UL reads
+    (``ont_ul_reads``) in a FASTA passed as ``--ul``, assembled with
+    ``device="cuda"`` and the default EC rounds.  Raises unless K1 ran,
+    K2 ran in the UL screen at most once per mapping pass per 65,536
+    rows, at least half of the UL reads mapped and bp.p_ctg.gfa totals
+    0.8-1.3x the genome.  Then the HiFi reads alone, resumed from the UL
+    run's EC checkpoint, for the contig count and N50 beside the UL
+    run's (a report, not a gate).  Returns the capture and the stats."""
+    import torch
+
+    import hifiasm_tpu_torch.ul as U
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.io.binfiles import checkpoint_paths
+    from hifiasm_tpu_torch.io.readstore import ReadStore
+    from hifiasm_tpu_torch.ops.banded_fwd import banded_forward
+    from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+
+    synth = _synth()
+    t0 = time.time()
+    rng = np.random.default_rng(17)
+    g = synth.make_genome(rng, genome_len, repeat_frac=0.04)
+    reads, _, _ = synth.sample_reads(rng, g, depth=depth, read_len=read_len,
+                                     err_rate=0.003)
+    store = ReadStore.from_arrays([f"r{i}" for i in range(len(reads))],
+                                  reads)
+    uls = ont_ul_reads(rng, g, ul_depth)
+    ulf = os.path.join(out_dir, "ul.fa")
+    _fasta(ulf, uls)
+    ul_bases = sum(len(u) for u in uls)
+    print(f"[ul] {store.n_reads} HiFi reads, {store.total_bases} bases; "
+          f"{len(uls)} UL reads, {ul_bases} bases (N50 "
+          f"{_n50([len(u) for u in uls])}); genome {genome_len} made in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    pfx = os.path.join(out_dir, "ul")
+    torch.cuda.reset_peak_memory_stats()
+    for k in U.STATS:
+        U.STATS[k] = 0
+    banded_tb.launches = 0
+    banded_forward.launches = 0
+    t0 = time.time()
+    with ULCapture() as cap:
+        res = assemble(store, HifiasmConfig(output_prefix=pfx,
+                                            ignore_bin=True, ul_reads=[ulf]),
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    k1, k2 = banded_tb.launches, banded_forward.launches
+    st = dict(U.STATS)
+    if k1 == 0:
+        raise AssertionError("the UL run launched no K1 kernel")
+    if cap.k2["screen"] == 0:
+        raise AssertionError("ul_band_err launched no K2 kernel in the UL "
+                             "screen")
+    if st["screen_launches"] > st["passes"] + st["screen_rows"] // 65536:
+        raise AssertionError(f"{st['screen_launches']} screen launches for "
+                             f"{st['passes']} passes of "
+                             f"{st['screen_rows']} rows")
+    if cap.batch["screen"] is None or cap.batch["junction"] is None:
+        raise AssertionError("no UL screen or junction batch was captured: "
+                             "ul no longer scores through _score_rows and "
+                             "ul_band_err")
+    if 2 * st["mapped"] < st["reads"]:
+        raise AssertionError(f"{st['mapped']} of {st['reads']} UL reads "
+                             f"mapped (over {st['passes']} passes)")
+    tot = _gfa_total(f"{pfx}.bp.p_ctg.gfa")
+    if not 0.8 * genome_len <= tot <= 1.3 * genome_len:
+        raise AssertionError(f"p_ctg totals {tot} bp, not within "
+                             f"[0.8, 1.3] x the {genome_len} bp genome")
+    lens = _contig_lens(f"{pfx}.p_ctg.fa")
+    stats = {"hifi_bases": int(store.total_bases), "ul_bases": ul_bases,
+             "ul_reads": len(uls), "wall_s": wall,
+             "bases_per_s": store.total_bases / wall,
+             "bases_per_s_with_ul": (store.total_bases + ul_bases) / wall,
+             "contigs": len(lens), "n50": _n50(lens), "p_ctg_bp": tot,
+             "stage_s": dict(res.stage_s), "ul": st,
+             "k1_launches": k1, "k2_launches": k2,
+             "k2_launches_by_site": dict(cap.k2),
+             "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    print("[ul] " + json.dumps(stats), flush=True)
+
+    pfx2 = os.path.join(out_dir, "noul")
+    for src, dst in zip(checkpoint_paths(pfx), checkpoint_paths(pfx2)):
+        shutil.copyfile(src, dst)
+    t0 = time.time()
+    assemble(ReadStore.from_arrays(["x"], [np.zeros(10, np.uint8)]),
+             HifiasmConfig(output_prefix=pfx2, ignore_bin=False),
+             device="cuda")
+    lens2 = _contig_lens(f"{pfx2}.p_ctg.fa")
+    print(f"[ul] contigs with --ul {len(lens)} (N50 {_n50(lens)}), without "
+          f"--ul {len(lens2)} (N50 {_n50(lens2)}; resumed from the EC "
+          f"checkpoint in {time.time() - t0:.1f} s)", flush=True)
+    return cap, stats
+
+
+def ul_scenarios(out_dir: str):
+    """The UL end-to-end test scenarios (tests/test_torch_ul.py): a 20 kb
+    genome spanned by three 5% error UL reads, and a 30 kb genome whose
+    HiFi coverage has a 3 kb hole that three UL reads span.  Yields
+    (name, names, reads, options)."""
+    synth = _synth()
+    for name in ("spanning", "gapfill"):
+        rng = np.random.default_rng(11)
+        if name == "spanning":
+            g = synth.make_genome(rng, 20000)
+            reads, _, _ = synth.sample_reads(rng, g, depth=12, read_len=2000,
+                                             err_rate=0.002)
+            uls = [synth.inject_errors(rng, g[1000:19000].copy(), 0.05)
+                   for _ in range(3)]
+        else:
+            g = synth.make_genome(rng, 30000)
+            reads = [r for part in (g[:14000], g[17000:])
+                     for r in synth.sample_reads(rng, part, depth=14,
+                                                 read_len=2500,
+                                                 err_rate=0.002)[0]]
+            uls = [g[10000:21000].copy() for _ in range(3)]
+        f = os.path.join(out_dir, f"{name}_ul.fa")
+        _fasta(f, uls)
+        yield name, [f"r{i}" for i in range(len(reads))], reads, \
+            {"ul_reads": [f], "ul_min_base": 1000}
+
+
+def phase_ul_small(out_dir: str):
+    """Phase 8b: the two UL scenarios assembled on cuda and on cpu (one
+    EC round): every output byte-identical, K2 launched in each cuda
+    run."""
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.io.readstore import ReadStore
+    from hifiasm_tpu_torch.ops.banded_fwd import banded_forward
+
+    n = 0
+    for name, names, reads, kw in ul_scenarios(out_dir):
+        pf = {}
+        for dev in ("cuda", "cpu"):
+            pf[dev] = os.path.join(out_dir, f"{name}_{dev}")
+            n0 = banded_forward.launches
+            assemble(ReadStore.from_arrays(names, [r.copy() for r in reads]),
+                     HifiasmConfig(output_prefix=pf[dev], n_rounds_ec=1,
+                                   ignore_bin=True, **kw), device=dev)
+            if dev == "cuda" and banded_forward.launches == n0:
+                raise AssertionError(f"the {name} UL run on cuda launched "
+                                     "no K2 kernel")
+        ta, tb = (os.path.basename(pf[d]) for d in ("cuda", "cpu"))
+        fa = sorted(f[len(ta):] for f in os.listdir(out_dir)
+                    if f.startswith(ta + "."))
+        fb = sorted(f[len(tb):] for f in os.listdir(out_dir)
+                    if f.startswith(tb + "."))
+        if fa != fb or ".bp.p_ctg.gfa" not in fa:
+            raise AssertionError(f"{ta} and {tb} wrote different files")
+        for suf in fa:
+            with open(pf["cuda"] + suf, "rb") as a, \
+                    open(pf["cpu"] + suf, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{name}: {suf} differs between "
+                                         f"cuda and cpu")
+            n += 1
+    print(f"[ul-small] cuda and cpu: all {n} outputs of the two UL "
+          f"scenarios byte-identical", flush=True)
+
+
+def phase_k2_ul(cap, rec: dict):
+    """Phase 8c: K2 on the largest UL screen batch (e = 15) and the
+    largest junction batch of phase 8, each bit-equal to its plain
+    version, timed and bounded, and the screen rows tiled to 131,072;
+    added to K2's record as shapes with their launches on the UL path."""
+    rec["shapes"] += [
+        _k2_shape("ul_screen", cap.batch["screen"],
+                  len(cap.batch["screen"][0]), cap.k2["screen"], "k2-ul"),
+        _k2_shape("ul_screen_tiled", cap.batch["screen"], 2 * 65536, 0,
+                  "k2-ul"),
+        _k2_shape("ul_junction", cap.batch["junction"],
+                  len(cap.batch["junction"][0]), cap.k2["junction"],
+                  "k2-ul")]
+    rec["launches_by_path"] = {"hic_rescue": rec["launches"],
+                               "ul": sum(cap.k2.values())}
+    rec["launches"] = sum(rec["launches_by_path"].values())
+    return rec
 
 
 def phase_build():
@@ -880,6 +1154,12 @@ def main(argv) -> int:
     phase_k2_rescue(batch, k2_launches, rec_k2)
     # 7. card against CPU for the new modes
     phase_diploid_small(out_dir)
+    # 8. the UL mode on the card, K2 in the UL screen and junctions
+    cap, _ = phase_ul(out_dir, 2_000_000, 20.0, 15000, 8.0)
+    # 8b. card against CPU for UL
+    phase_ul_small(out_dir)
+    # 8c. K2 at the UL shapes
+    phase_k2_ul(cap, rec_k2)
     shutil.rmtree(out_dir, ignore_errors=True)
 
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)

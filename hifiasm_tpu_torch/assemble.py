@@ -2,13 +2,13 @@
 
 The port of hifiasm_tpu/assemble.py: filter table -> EC rounds on the
 device -> final overlap records -> string graph -> cleaning rounds ->
-unitigs -> purge -> GFA, with the branches off ``bp`` that make the
-assembly haplotype-resolved: trio binning (``dip.*``), Hi-C phasing and
+unitigs -> purge -> GFA, with every branch off ``bp``: ultralong
+integration (``--ul``, the "double graph": UL reads mapped to the unitig
+graph with their screen and junction checks on K2, then path correction,
+renewal and gap fill), trio binning (``dip.*``), Hi-C phasing and
 scaffolding (``hic.*``, the seed-extend rescue on the device), polyploid
 output, ``--dual-scaf`` and the debug surfaces ``-e`` and
-``--dbg-het-cnt``.  Ultralong integration (``--ul``) is not ported yet
-(ROADMAP.md Queue 1): a configuration that asks for it raises
-``NotImplementedError`` before any work starts.
+``--dbg-het-cnt``.
 """
 
 from __future__ import annotations
@@ -50,17 +50,6 @@ class AssemblyResult:
     purge: Optional[PurgeResult] = None
     raw_ug: Optional[UnitigGraph] = None
     stage_s: dict = field(default_factory=dict)   # wall seconds per stage
-
-
-_UNPORTED = "is not ported to hifiasm_tpu_torch yet (ROADMAP.md Queue 1"
-
-
-def _check_ported(cfg: HifiasmConfig) -> None:
-    """Raise for the one branch off the ``bp`` path that the port lacks."""
-    if cfg.ul_reads:
-        raise NotImplementedError(
-            f"ultralong integration (--ul) {_UNPORTED}, the branches off "
-            f"bp: UL)")
 
 
 def clean_rounds(sg: StringGraph, cfg: HifiasmConfig,
@@ -126,12 +115,11 @@ def clean_rounds(sg: StringGraph, cfg: HifiasmConfig,
 
 def assemble(store: ReadStore, cfg: HifiasmConfig,
              write_outputs: bool = True, device="cuda") -> AssemblyResult:
-    """Default ``bp`` assembly; EC runs on ``device`` ("cuda" unless the
-    caller asks for "cpu")."""
+    """Default ``bp`` assembly; EC, and the UL mapping's checks, run on
+    ``device`` ("cuda" unless the caller asks for "cpu")."""
     from hifiasm_tpu_torch.io.binfiles import load_ec_state, save_ec_state
 
     dev = resolve_device(device)
-    _check_ported(cfg)
     walls = {}
     t0 = time.time()
 
@@ -260,6 +248,13 @@ def assemble(store: ReadStore, cfg: HifiasmConfig,
         from hifiasm_tpu_torch.graph.unitig import ug_post_join
         ug_post_join(ug, cov)
 
+    # ultralong "double graph" integration (~create_ul_info/ul_load,
+    # Overlaps.cpp:39180 -> inter.cpp:21693)
+    if cfg.ul_reads:
+        t1 = time.time()
+        read_cov = _ul_integrate(store, cfg, ug, cov, read_cov, dev)
+        walls["ul"] = time.time() - t1           # part of clean_unitig
+
     if (cfg.hic_reads_1 and cfg.hic_reads_2) or cfg.fn_bin_yak_pat or \
             cfg.fn_bin_list_pat:
         # flatten tiny nested bubbles before Hi-C / trio phasing
@@ -362,7 +357,6 @@ def write_assembly_outputs(res: AssemblyResult, cfg: HifiasmConfig,
     The Hi-C rescue runs K2 on ``device``; the wall seconds of the Hi-C
     mapping, the phasing and the scaffolding (parts of the write stage)
     go to ``res.stage_s`` as hic_map, phase and scaffold."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     walls = res.stage_s
     for key in ("hic_map", "phase", "scaffold"):
@@ -681,6 +675,76 @@ def write_assembly_outputs(res: AssemblyResult, cfg: HifiasmConfig,
         f"wrote {prefix}.{mode}.[rp]_utg / .{mode}.p_ctg / {mode}.hap[12] "
         f"({len(prim_ids)} primary, {len(alt_ids)} alternate, "
         f"{len(hap1_ids)}+{len(hap2_ids)} hap contigs)")
+
+
+def _ul_integrate(store: ReadStore, cfg: HifiasmConfig, ug: UnitigGraph,
+                  cov: CoverageCut, read_cov: np.ndarray, device
+                  ) -> np.ndarray:
+    """The UL branch of ``assemble`` (the JAX package's, in place on
+    ``ug``, ``store`` and ``cov``): map or resume the UL paths, correct,
+    refine, renew, re-map, renew again, drop weak arcs, fill bridged
+    gaps with pseudo-reads and cut UL tips.  The mappings' screen and
+    junction checks score on K2 on ``device``.  Returns ``read_cov``
+    extended with the pseudo-reads' coverage."""
+    from hifiasm_tpu_torch.graph.unitig import unitig_seq
+    from hifiasm_tpu_torch.io.fastx import iter_fastx
+    from hifiasm_tpu_torch.io.readstore import seq_to_codes
+    from hifiasm_tpu_torch.ul import catalog_correction, ul_align, \
+        ul_renew_graph
+
+    useqs = [unitig_seq(u, store, cov) for u in ug.utgs]
+    ul_codes = []
+    for path in cfg.ul_reads:
+        for _, s in iter_fastx(path):
+            c = seq_to_codes(s)
+            if len(c) >= cfg.ul_min_base:   # --ul-cut
+                ul_codes.append(c)
+    # UL alignment cache (~write_all_ul_t/load_all_ul_t,
+    # inter.cpp:20120/:21705): keyed on unitig + UL input shape, as the
+    # JAX package keys it, so either package resumes the other's cache
+    from hifiasm_tpu_torch.io.binfiles import load_ul_paths, save_ul_paths
+    ul_fp = (f"ul:hpc1:{len(useqs)}:{sum(len(s) for s in useqs)}:"
+             f"{len(ul_codes)}:{sum(len(c) for c in ul_codes)}")
+    paths = None if cfg.ignore_bin else \
+        load_ul_paths(cfg.output_prefix, ul_fp)
+    if paths is None:
+        # HPC mapping (~the all_ul_t HPC UL pipeline): homopolymer-
+        # length ONT noise vanishes in compressed space
+        paths = ul_align(useqs, ul_codes, ug=ug, hpc=True, device=device)
+        save_ul_paths(cfg.output_prefix, paths, ul_fp)
+    # UL-vs-UL catalog correction (gfa_ut.cpp:7622 rounds over
+    # real integer-space overlaps; the triple-vote shortcut
+    # mis-corrects repeat-crossing reads)
+    # --integer-correct overrides the round count (the reference
+    # drives ul_re_correct with it, gfa_ut.cpp:17648)
+    catalog_correction(paths,
+                       rounds=cfg.integer_correct_round
+                       if cfg.integer_correct_round > 0 else 3)
+    # base-precision junction boundaries (~ul_refine_alignment)
+    from hifiasm_tpu_torch.ul import ul_refine_blocks
+    ul_refine_blocks(paths, ul_codes, useqs)
+    ul_renew_graph(ug, paths)
+    # re-map against the RENEWED graph and renew once more: junction
+    # decisions change once bridged arcs exist / contradicted arcs
+    # are gone (~the reference's re-alignment cycle after
+    # gradually_renew_g, inter.cpp:20527,20559)
+    from hifiasm_tpu_torch.ul import ul_realign_renewed
+    if ul_realign_renewed(ug, useqs, paths, ul_codes, device=device):
+        ul_refine_blocks(paths, ul_codes, useqs)
+        ul_renew_graph(ug, paths)
+    # weak-arc ladder over UL support (--path-min/--path-max)
+    from hifiasm_tpu_torch.ul import ul_path_drop_ladder
+    ul_path_drop_ladder(ug, paths, cfg.path_min, cfg.path_max)
+    # join bridged pairs, inserting UL gap sequence as pseudo-reads
+    from hifiasm_tpu_torch.ul import ul_fill_bridged
+    new_rids = ul_fill_bridged(ug, store, cov, paths, ul_codes)
+    if new_rids:
+        read_cov = np.concatenate(
+            [read_cov, np.array([c for _, c in new_rids], np.int64)])
+    # UL-graph tip removal (--ul-tip; renumbers unitigs, so last)
+    from hifiasm_tpu_torch.graph.unitig import ug_cut_tips
+    ug_cut_tips(ug, max_reads=cfg.ul_tip)
+    return read_cov
 
 
 def _drop_edges_by_trio(paf, trio_flags) -> None:

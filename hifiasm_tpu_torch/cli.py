@@ -1,9 +1,8 @@
 """Command-line interface (~CommandLines.cpp:18-86 ketopt table).
 
 The option surface of hifiasm_tpu/cli.py plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain PyTorch path).  The UL options, whose
-branch the port has not reached yet, parse as before and raise
-``NotImplementedError`` when the assembly starts.
+``cuda``; ``cpu`` runs the plain PyTorch path).  Every mode runs,
+``--ul`` included; its UL mapping checks score on K2 on the device.
 """
 
 from __future__ import annotations
@@ -311,14 +310,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not cfg.read_files:
         build_parser().print_help()
         return 1
-    from hifiasm_tpu_torch.assemble import _check_ported, assemble
+    from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.device import resolve_device
     from hifiasm_tpu_torch.io.readstore import ReadStore
     from hifiasm_tpu_torch.native import set_threads
     from hifiasm_tpu_torch.utils.logging import log
 
     device = resolve_device(device)
-    _check_ported(cfg)
     set_threads(cfg.threads)              # -t bounds the native kernels
 
     store = ReadStore.from_files(

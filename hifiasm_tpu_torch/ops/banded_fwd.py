@@ -13,17 +13,24 @@ kernel or raises.
 It computes the err and y_end of ``banded_batch_np(..., traceback=False)``:
 x aligns globally against y with the y start free in [0, 2e] and the y
 end free in [xlen, xlen + 2e], preferring the centre diagonal on a tie;
-err is -1 past ``e`` errors.  Its assembly path is the Hi-C seed-extend
-rescue (phasing/hic.rescue_align, e = 8), which in the JAX package calls
-``banded_batch_np`` on the host for the same err.
+err is -1 past ``e`` errors.  It has three assembly paths, each of
+which calls ``banded_batch_np`` on the host for the same err in the JAX
+package: the Hi-C seed-extend rescue (phasing/hic.rescue_align, e = 8,
+XL up to the longest mate), the UL chain screen (ul.ul_band_err from
+``ul_align``: 75 bp windows, e = 15, every chain of a mapping pass in
+one call of at most 65,536 rows) and the UL junction checks (the same
+helper from ``graph_chain_paths``: windows up to 140 bp, e = 8-31, one
+call per DP row and band width).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from hifiasm_tpu_torch.device import resolve_device
 from hifiasm_tpu_torch.ops.banded_batch import BatchAlign
 from hifiasm_tpu_torch.ops.banded_tb import _check, forward_scan
 
@@ -84,3 +91,16 @@ def banded_forward(x: torch.Tensor, xlen: torch.Tensor, y: torch.Tensor,
 
 
 banded_forward.launches = 0
+
+
+def banded_err_np(X: np.ndarray, xl: np.ndarray, Y: np.ndarray,
+                  yl: np.ndarray, e: int, device="cuda") -> np.ndarray:
+    """K2 for rows packed on the host: uploads X, Y (uint8 [n, XL] and
+    [n, XL + 2e]) and the lengths to ``device``, runs ``banded_forward``
+    there (the kernel for cuda, its plain version for cpu) and returns
+    ``banded_batch_np(X, xl, Y, yl, e, traceback=False).err`` as int64
+    [n] on the host, -1 past ``e`` errors."""
+    dev = resolve_device(device)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        X, xl.astype(np.int32), Y, yl.astype(np.int32))]
+    return banded_forward(*t, e).err.cpu().numpy().astype(np.int64)

@@ -716,15 +716,9 @@ def rescue_align(X: np.ndarray, xl: np.ndarray, Y: np.ndarray,
     on ``device`` (the kernel for cuda, its plain version for cpu):
     ``banded_batch_np(X, xl, Y, yl, e, traceback=False).err``, -1 past
     ``e`` errors.  int64 [n] on the host."""
-    import torch
+    from hifiasm_tpu_torch.ops.banded_fwd import banded_err_np
 
-    from hifiasm_tpu_torch.ops.banded_fwd import banded_forward
-
-    dev = resolve_device(device)
-    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-        X, xl.astype(np.int32), Y, yl.astype(np.int32))]
-    res = banded_forward(t[0], t[1], t[2], t[3], e)
-    return res.err.cpu().numpy().astype(np.int64)
+    return banded_err_np(X, xl, Y, yl, e, device)
 
 
 def map_hic_pairs_pos_batch(index: UnitigIndex, pairs,

@@ -5,7 +5,8 @@ tests/test_device_frontend.py: bp.p_ctg.gfa, bp.r_utg.gfa, bp.p_utg.gfa
 and p_ctg.fa must be byte-identical — fresh, on a rerun, through the
 port's CLI on a FASTA file, after resuming from the JAX package's EC
 checkpoint, and on the repeat-heavy store of that file with the device
-front end on and off."""
+front end on and off; and ``--ul`` alone and beside Hi-C and
+``--dual-scaf``, resumed from that checkpoint."""
 
 import dataclasses
 import os
@@ -21,7 +22,7 @@ from hifiasm_tpu.io.readstore import ReadStore as JStore
 from hifiasm_tpu_torch.assemble import assemble
 from hifiasm_tpu_torch.convert import config_from_reference
 from hifiasm_tpu_torch.io.readstore import ReadStore
-from tests.synth import make_genome, sample_reads
+from tests.synth import inject_errors, make_genome, sample_reads
 
 OUTPUTS = ("bp.p_ctg.gfa", "bp.r_utg.gfa", "bp.p_utg.gfa", "p_ctg.fa")
 
@@ -146,25 +147,57 @@ def repeat_runs(tmp_path_factory):
     return d, names, reads, pj
 
 
-def test_unported_branches_raise(tmp_path):
-    """--ul, the one branch off bp still to port, raises before any work
-    starts, alone or beside the ported branches, from assemble and from
-    the CLI."""
-    from hifiasm_tpu_torch.cli import main
+def test_unported_branches_raise(runs):
+    """--ul, the branch off bp that the port once refused, now runs alone
+    and beside the other branches: UL, UL + Hi-C and UL + --dual-scaf,
+    each resumed from the JAX package's EC checkpoint, write the JAX
+    package's bytes (the reference run with the port's sequence memo,
+    tests/test_torch_hic.py ``jax_assemble``)."""
+    import hifiasm_tpu_torch.ul as ul_mod
+    from tests.test_torch_hic import _assert_same as assert_all_same
+    from tests.test_torch_hic import jax_assemble as jax_held_memo
 
-    names, reads = _reads()
-    store = ReadStore.from_arrays(names[:3], reads[:3])
-    for kw in ({"ul_reads": ["u.fa"]},
-               {"ul_reads": ["u.fa"], "hic_reads_1": ["a.fq"],
-                "hic_reads_2": ["b.fq"]},
-               {"ul_reads": ["u.fa"], "dual_scaf": True}):
-        cfg = _port_cfg(str(tmp_path / "x"), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*UL"):
-            assemble(store, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="--ul"):
-        main(["-o", str(tmp_path / "x"), "--ul", "u.fa", "--device", "cpu",
-              "reads.fa"])
-    assert not os.listdir(tmp_path)
+    d, names, _, pj, _ = runs
+    g = make_genome(np.random.default_rng(11), 12000)   # _reads' genome
+    rng = np.random.default_rng(5)
+    nt = np.frombuffer(b"ACGT", np.uint8)
+    with open(d / "ul.fa", "w") as f:
+        for i in range(3):
+            ul = inject_errors(rng, g[500:11500].copy(), 0.05)
+            f.write(f">u{i}\n{nt[ul].tobytes().decode()}\n")
+    mates = ([], [])
+    for a, b in rng.integers(0, len(g) - 150, (400, 2)):
+        mates[0].append(inject_errors(rng, g[a:a + 150].copy(), 0.01))
+        mates[1].append(inject_errors(rng, g[b:b + 150].copy(), 0.01))
+    for k, m in enumerate(mates):
+        with open(d / f"hic_{k + 1}.fq", "w") as f:
+            for i, s in enumerate(m):
+                f.write(f"@p{i}\n{nt[s].tobytes().decode()}\n+\n"
+                        f"{'I' * len(s)}\n")
+    ul = {"ul_reads": [str(d / "ul.fa")], "ignore_bin": False}
+    stub = [np.zeros(10, np.uint8)]
+    for tag, kw, must in (
+            ("ul", ul, ("bp.p_ctg.gfa",)),
+            ("ul_hic", {**ul, "hic_reads_1": [str(d / "hic_1.fq")],
+                        "hic_reads_2": [str(d / "hic_2.fq")]},
+             ("hic.p_ctg.gfa", "hic.hap1.p_ctg.gfa", "hic.hap1.scaf.fa")),
+            ("ul_dual", {**ul, "dual_scaf": True},
+             ("bp.hap1.scaf.fa", "bp.hap2.scaf.fa"))):
+        for pkg in ("jax", "port"):
+            p = str(d / f"{tag}_{pkg}")
+            for src, dst in zip(checkpoint_paths(pj), checkpoint_paths(p)):
+                shutil.copyfile(src, dst)
+            if pkg == "jax":
+                jax_held_memo(JStore.from_arrays(["x"], stub), _jcfg(p, **kw))
+            else:
+                for k in ul_mod.STATS:
+                    ul_mod.STATS[k] = 0
+                res = assemble(ReadStore.from_arrays(["x"], stub),
+                               _port_cfg(p, **kw), device="cpu")
+                assert res.store.n_reads == len(names)
+                assert "ul" in res.stage_s
+                assert ul_mod.STATS["mapped"] >= 3, ul_mod.STATS
+        assert_all_same(d, f"{tag}_jax", f"{tag}_port", must=must)
 
 
 def test_default_device_raises_without_card(tmp_path):
