@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --kernels    # phases 1-3b: build, K1 and K2
+    python3 chip_smoke.py --mesh       # phases 1, 2, 4 and 9-9d: the
+                                       # multi-device path beside phase 4
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -29,9 +31,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. card against plain end to end: a small store assembled with
    device="cuda" (device front end on) and with device="cpu" and
    ``device_frontend=False`` gives byte-identical outputs;
-6. the diploid modes on the card: a 2 x 2 Mb diploid (het rate 0.002),
-   HiFi reads of 15 kb at 15x per haplotype with 0.3% error (~60 Mb),
-   100,000 Hi-C pairs per haplotype (150 bp mates, 0.3% error) and yak
+6. the diploid modes on the card: a 2 x 1 Mb diploid (het rate 0.002),
+   HiFi reads of 15 kb at 15x per haplotype with 0.3% error (~30 Mb),
+   50,000 Hi-C pairs per haplotype (150 bp mates, 0.3% error) and yak
    dumps of each haplotype, assembled twice with ``device="cuda"``: a
    ``hic`` run, whose Hi-C seed-extend rescue must launch K2, and a
    ``dip`` run; both must launch K1, give each haplotype 0.5-1.6x its
@@ -60,7 +62,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    on cpu: every output byte-identical, K2 launched in the cuda runs;
 8c. K2 at the UL shapes: the largest screen batch (e = 15) and the
    largest junction batch of phase 8 replayed, bit-equal to the plain
-   version, timed and bounded; the screen rows also tiled to 131,072.
+   version, timed and bounded; the screen rows also tiled to 131,072;
+9. the multi-device path: phase 4's store assembled on a mesh of every
+   card when the host has two or more, else of 4 logical shards on
+   cuda:0 (``assemble(..., mesh=)``); bp.p_ctg.gfa must be byte-identical
+   to phase 4's, K1 must launch on every shard, every EC round must take
+   the mesh gather (no device front end) with no lane overflow; wall
+   time, bases/s, windows and K1 launches per shard, the host fallback
+   count and peak memory per card are printed;
+9b. a small store (phase 5's) on the cuda mesh, on a mesh of 4 logical
+   CPU shards and on cuda with no mesh: byte-identical outputs;
+9c. ``parallel.dryrun.dryrun_multichip`` on the card's mesh;
+9d. ``--profile``: phase 5's small store with ``profile_dir`` set must
+   write one Chrome trace per EC round, with K1's kernel in it
+   (scripts/trace_idle.py reads it).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -447,7 +462,8 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
           f"(genome {genome_len}, {depth}x, {read_len} bp, err {err}) "
           f"made in {time.time() - t0:.1f} s", flush=True)
     pfx = os.path.join(out_dir, "asm")
-    cfg = HifiasmConfig(output_prefix=pfx, ignore_bin=True)
+    # one device on any host (a host of several cards would take the mesh)
+    cfg = HifiasmConfig(output_prefix=pfx, ignore_bin=True, mesh_devices=1)
     torch.cuda.reset_peak_memory_stats()
     for st in (D.STATS, P.STATS, A.STATS, C.STATS):
         for k in st:
@@ -489,6 +505,162 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
              "peak_device_bytes": torch.cuda.max_memory_allocated()}
     print("[main] " + json.dumps(stats), flush=True)
     return launches, stats
+
+
+def card_mesh():
+    """Every card when the host has two or more, else 4 logical shards
+    on cuda:0; and which of the two it is."""
+    import torch
+
+    from hifiasm_tpu_torch.parallel.mesh import Mesh
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return Mesh([f"cuda:{i}" for i in range(n)]), f"{n} cards"
+    return Mesh(["cuda:0"] * 4), "4 logical shards on cuda:0"
+
+
+def phase_mesh(out_dir: str, main_gfa: str, genome_len: int, depth: float,
+               read_len: int, err: float):
+    """Phase 9: phase 4's store assembled on the card's mesh; its
+    bp.p_ctg.gfa must be byte-identical to phase 4's.  Returns the K1
+    launches and the stats."""
+    import torch
+
+    import hifiasm_tpu_torch.ec.device_ec as D
+    import hifiasm_tpu_torch.ec.pipeline as P
+    import hifiasm_tpu_torch.parallel.index_shard as I
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+
+    mesh, how = card_mesh()
+    print(f"[mesh] {how}: {[str(d) for d in mesh.devices]}", flush=True)
+    store = _store(genome_len, depth, read_len, err, seed=11)
+    pfx = os.path.join(out_dir, "mesh")
+    cfg = HifiasmConfig(output_prefix=pfx, ignore_bin=True)
+    for dev in mesh.distinct:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for st in (D.STATS, P.STATS, I.STATS):
+        for k in st:
+            st[k] = 0
+    D.SHARD_STATS.clear()
+    banded_tb.launches = 0
+    t0 = time.time()
+    res = assemble(store, cfg, device="cuda", mesh=mesh)
+    for dev in mesh.distinct:
+        torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    launches = banded_tb.launches
+    with open(main_gfa, "rb") as a, open(f"{pfx}.bp.p_ctg.gfa", "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("the mesh run's bp.p_ctg.gfa differs from "
+                                 "phase 4's")
+    shards = {s: dict(D.SHARD_STATS.get(s, {})) for s in range(len(mesh))}
+    idle = [s for s, st in shards.items() if not st.get("k1_launches")]
+    if idle:
+        raise AssertionError(f"K1 did not launch on shards {idle}")
+    if P.STATS["mesh_rounds"] == 0 or P.STATS["frontend_rounds"]:
+        raise AssertionError(
+            f"{P.STATS['mesh_rounds']} rounds took the mesh gather and "
+            f"{P.STATS['frontend_rounds']} the device front end")
+    if I.STATS["overflow"]:
+        raise AssertionError(f"{I.STATS['overflow']} queries overflowed "
+                             "their lanes")
+    stats = {"mesh": how, "shards": len(mesh),
+             "bases": int(store.total_bases), "wall_s": wall,
+             "bases_per_s": store.total_bases / wall,
+             "p_ctg_identical_to_phase_4": True,
+             "stage_s": res.stage_s,
+             "ec_s": {k: v for k, v in P.STATS.items() if k.endswith("_s")},
+             "mesh_rounds": P.STATS["mesh_rounds"],
+             "host_fallback_queries": P.STATS["mesh_fallback"],
+             "lanes": dict(I.STATS),
+             "device_ec_parts_s": {k: v for k, v in D.STATS.items()
+                                   if k.endswith("_s")},
+             "k1_launches": launches, "per_shard": shards,
+             "windows_aligned": D.STATS["windows"],
+             "retry_windows": D.STATS["retry_windows"],
+             "host_dag_reads": P.STATS["host_dag_reads"],
+             "peak_device_bytes": {str(d): torch.cuda.max_memory_allocated(d)
+                                   for d in mesh.distinct}}
+    print("[mesh] " + json.dumps(stats), flush=True)
+    return launches, stats
+
+
+def phase_mesh_small(out_dir: str):
+    """Phase 9b: phase 5's small store on the card's mesh, on a mesh of 4
+    logical CPU shards, and on cuda with no mesh: the four outputs must
+    be byte-identical, and K1 must launch in the cuda mesh run."""
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+    from hifiasm_tpu_torch.parallel.mesh import Mesh
+
+    mesh, _ = card_mesh()
+    runs = {"cuda_mesh": ("cuda", mesh),
+            "cpu_mesh": ("cpu", Mesh(["cpu"] * 4)), "cuda_one": ("cuda", None)}
+    for tag, (dev, m) in runs.items():
+        n0 = banded_tb.launches
+        assemble(_store(12000, 12, 1800, 0.004, seed=11), HifiasmConfig(
+            output_prefix=os.path.join(out_dir, f"m_{tag}"), ignore_bin=True,
+            mesh_devices=1 if m is None else 0), device=dev, mesh=m)
+        if tag == "cuda_mesh" and banded_tb.launches == n0:
+            raise AssertionError("the small cuda mesh run launched no K1")
+    for suf in ("bp.p_ctg.gfa", "bp.r_utg.gfa", "bp.p_utg.gfa", "p_ctg.fa"):
+        data = []
+        for tag in runs:
+            with open(os.path.join(out_dir, f"m_{tag}.{suf}"), "rb") as f:
+                data.append(f.read())
+        if not data[0] or any(d != data[0] for d in data[1:]):
+            raise AssertionError(f"small store on the mesh: {suf} differs "
+                                 "between the cuda mesh, the cpu mesh and "
+                                 "cuda alone (or is empty)")
+    print("[mesh-small] cuda mesh, cpu mesh (4 logical shards) and cuda "
+          "without a mesh: outputs byte-identical", flush=True)
+
+
+def phase_dryrun():
+    """Phase 9c: dryrun_multichip on the card's mesh."""
+    from hifiasm_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    mesh, how = card_mesh()
+    t0 = time.time()
+    out = dryrun_multichip(mesh, _synth())
+    print(f"[dryrun] {how}: {json.dumps(out)} in {time.time() - t0:.1f} s",
+          flush=True)
+
+
+def phase_profile(out_dir: str):
+    """Phase 9d: --profile on phase 5's small store: one trace per EC
+    round, each naming K1's kernel; the trace's device numbers from
+    scripts/trace_idle.py."""
+    import importlib.util
+
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+
+    prof = os.path.join(out_dir, "prof")
+    cfg = HifiasmConfig(output_prefix=os.path.join(out_dir, "prof_small"),
+                        ignore_bin=True, profile_dir=prof, mesh_devices=1)
+    assemble(_store(12000, 12, 1800, 0.004, seed=11), cfg, device="cuda")
+    spec = importlib.util.spec_from_file_location(
+        "trace_idle", os.path.join(ROOT, "scripts", "trace_idle.py"))
+    ti = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ti)
+    names = sorted(os.listdir(prof))
+    if not names or names != [f"ec_r{r}.json" for r in range(len(names))]:
+        raise AssertionError(f"--profile wrote {names}")
+    for n in names:
+        path = os.path.join(prof, n)
+        with open(path) as f:
+            if "banded_tb_kernel" not in f.read():
+                raise AssertionError(f"{n} does not name K1's kernel")
+        rep = ti.analyse(path)
+        print(f"[profile] {n} names K1's kernel: " + json.dumps(
+            {k: rep[k] for k in ("window_us", "device_events",
+                                 "device_busy_us", "idle_share",
+                                 "vote")}), flush=True)
 
 
 def phase_small(out_dir: str):
@@ -1099,8 +1271,9 @@ def main(argv) -> int:
     import torch
 
     kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
-        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+    mesh_only = argv == ["--mesh"]
+    if argv and not (kernels_only or mesh_only):
+        print("usage: chip_smoke.py [--kernels | --mesh]", file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -1124,6 +1297,22 @@ def main(argv) -> int:
 
     # 2. build every kernel and the native host library
     phase_build()
+    out_dir = os.path.join(ROOT, "build", "smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    if mesh_only:
+        phase_main(out_dir, 4_000_000, MAIN_DEPTH, 15000, 0.003)
+        phase_mesh(out_dir, os.path.join(out_dir, "asm.bp.p_ctg.gfa"),
+                   4_000_000, MAIN_DEPTH, 15000, 0.003)
+        phase_mesh_small(out_dir)
+        phase_dryrun()
+        phase_profile(out_dir)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        print(f"[done] {time.time() - t_start:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. K1 against its plain version at the production shape, then K2
     # on the same windows
@@ -1139,17 +1328,13 @@ def main(argv) -> int:
         print(json.dumps({"kernels": [rec, rec_k2]}), flush=True)
         return 0
 
-    out_dir = os.path.join(ROOT, "build", "smoke")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
     # 4. the main path end to end on the card
     launches, _ = phase_main(out_dir, 4_000_000, MAIN_DEPTH, 15000, 0.003)
-    rec["launches"] = launches["banded_tb"]
     # 5. card against plain end to end
     phase_small(out_dir)
     # 6. the diploid modes on the card, K2 in the Hi-C rescue
-    k2_launches, batch, _ = phase_diploid(out_dir, 2_000_000, 15.0, 15000,
-                                          100_000)
+    k2_launches, batch, _ = phase_diploid(out_dir, 1_000_000, 15.0, 15000,
+                                          50_000)
     # 6b. K2 at the rescue's shape
     phase_k2_rescue(batch, k2_launches, rec_k2)
     # 7. card against CPU for the new modes
@@ -1160,6 +1345,17 @@ def main(argv) -> int:
     phase_ul_small(out_dir)
     # 8c. K2 at the UL shapes
     phase_k2_ul(cap, rec_k2)
+    # 9. the multi-device path at phase 4's size, against phase 4's contigs
+    mesh_launches, _ = phase_mesh(
+        out_dir, os.path.join(out_dir, "asm.bp.p_ctg.gfa"), 4_000_000,
+        MAIN_DEPTH, 15000, 0.003)
+    rec["launches_by_path"] = {"main": launches["banded_tb"],
+                               "mesh": mesh_launches}
+    rec["launches"] = sum(rec["launches_by_path"].values())
+    # 9b-9d. mesh against cpu mesh and one card; the dryrun; --profile
+    phase_mesh_small(out_dir)
+    phase_dryrun()
+    phase_profile(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
 
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)

@@ -114,9 +114,13 @@ def clean_rounds(sg: StringGraph, cfg: HifiasmConfig,
 
 
 def assemble(store: ReadStore, cfg: HifiasmConfig,
-             write_outputs: bool = True, device="cuda") -> AssemblyResult:
+             write_outputs: bool = True, device="cuda",
+             mesh=None) -> AssemblyResult:
     """Default ``bp`` assembly; EC, and the UL mapping's checks, run on
-    ``device`` ("cuda" unless the caller asks for "cpu")."""
+    ``device`` ("cuda" unless the caller asks for "cpu").  EC runs on a
+    mesh of every visible card unless ``cfg.mesh_devices`` caps it
+    (ec/pipeline._active_mesh); ``mesh``, a parallel.mesh.Mesh, replaces
+    that rule (tests run logical shards this way)."""
     from hifiasm_tpu_torch.io.binfiles import load_ec_state, save_ec_state
 
     dev = resolve_device(device)
@@ -147,7 +151,8 @@ def assemble(store: ReadStore, cfg: HifiasmConfig,
 
         walls["filter_table"] = time.time() - t0
         t0 = time.time()
-        ec = run_ec(store, cfg, ft if len(ft) else None, device=dev)
+        ec = run_ec(store, cfg, ft if len(ft) else None, device=dev,
+                    mesh=mesh)
         walls["ec"] = time.time() - t0
         t0 = time.time()
         if write_outputs:

@@ -170,7 +170,7 @@ class HifiasmConfig:
     #   (Assembly.cpp:1014,968)
 
     # --- device execution ---
-    profile_dir: Optional[str] = None     # --profile: jax.profiler traces
+    profile_dir: Optional[str] = None     # --profile: torch.profiler traces
     read_batch: int = 64                  # reads per device batch
     max_read_len: int = 65536             # padded read length cap
     use_pallas: bool = True               # use Pallas kernels when on TPU

@@ -1,7 +1,8 @@
-"""Device-resident error correction on one CUDA card (or, on request, the CPU).
+"""Device-resident error correction on a CUDA card, on a mesh of cards
+(parallel/mesh.py), or, on request, on the CPU.
 
 The port of hifiasm_tpu/ec/device_ec.py.  The whole read store lives on
-the device as a [R, 2, Lp] uint8 bank (forward and reverse-complement
+each device as a [R, 2, Lp] uint8 bank (forward and reverse-complement
 planes, padded with 4).  Per batch of reads:
 
   L1 align     gather every window from the bank and align it with K1
@@ -37,13 +38,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from hifiasm_tpu_torch.config import THRESHOLD_MAX_SIZE, WINDOW_HC
-from hifiasm_tpu_torch.device import resolve_device
-from hifiasm_tpu_torch.ec.window_align import plan_read_windows, retry_plan
+from hifiasm_tpu_torch.ec.window_align import plan_windows_many, retry_plan
 from hifiasm_tpu_torch.io.readstore import ReadStore, revcomp_codes
 from hifiasm_tpu_torch.ops.banded_tb import banded_tb
 from hifiasm_tpu_torch.overlap.anchors import OverlapRegions
+from hifiasm_tpu_torch.parallel.mesh import device_of
 from hifiasm_tpu_torch.utils.logging import log
 
 E_BAND = THRESHOLD_MAX_SIZE          # one static band for all windows
@@ -65,6 +67,8 @@ _PAD_R = 1024
 # (synced at the packed-plane fetch) and the rest of the host work
 STATS = {"windows": 0, "retry_windows": 0, "bank_s": 0.0, "plan_s": 0.0,
          "align_s": 0.0, "vote_s": 0.0, "host_s": 0.0}
+# per shard index (0 without a mesh): windows aligned and K1 launches
+SHARD_STATS: Dict[int, Dict[str, int]] = {}
 
 
 @dataclass
@@ -377,47 +381,171 @@ class ReadECOut:
     het_sites: np.ndarray
 
 
+def lpt_rows(wc: np.ndarray, n_dev: int) -> Tuple[np.ndarray, int]:
+    """Balanced read -> plane-row assignment of a batch on an ``n_dev``
+    mesh (port of the JAX package's ``_shard_b`` branch of
+    ``DeviceEC._process_batch``).  Shard d owns rows [d*rb, (d+1)*rb),
+    and its align and vote work is its rows' window count (``wc`` per
+    read): LPT, heaviest read first, each to the lightest shard that has
+    a free row.  Returns (row per read, Rp): Rp is a power of two >= 256
+    rounded up to a multiple of n_dev."""
+    R = len(wc)
+    Rp = 256
+    while Rp < R:
+        Rp *= 2
+    rb = -(-Rp // n_dev)
+    order = np.argsort(-np.asarray(wc, np.int64), kind="stable")
+    load = np.zeros(n_dev, np.int64)
+    used = np.zeros(n_dev, np.int64)
+    next_row = [d * rb for d in range(n_dev)]
+    rows = np.zeros(R, np.int64)
+    for i in order:
+        cand = [d for d in range(n_dev) if used[d] < rb]
+        d = min(cand, key=lambda d: (load[d], d))
+        rows[i] = next_row[d]
+        next_row[d] += 1
+        used[d] += 1
+        load[d] += wc[i]
+    return rows, rb * n_dev
+
+
+def route_windows(q_row: np.ndarray, Rp: int, n_dev: int, chunk: int):
+    """Owner-routed slot map (port of ``DeviceEC._route_windows``):
+    returns (wmap, C, rb): wmap [C*chunk] holds the window occupying each
+    slot (-1 pad), shard d's slots are columns [d*pc, (d+1)*pc) of every
+    chunk row (pc = chunk // n_dev), and rb = Rp // n_dev is a shard's
+    row block."""
+    nd = n_dev
+    pc = chunk // nd
+    rb = Rp // nd
+    owner = np.minimum(q_row // rb, nd - 1)
+    perm = np.argsort(owner, kind="stable")
+    n_d = np.bincount(owner, minlength=nd)
+    need = max(int(n_d.max()) if len(q_row) else 1, 1)
+    C = 1
+    while C * pc < need:
+        C *= 2
+    wmap = np.full(C * chunk, -1, np.int64)
+    off = np.zeros(nd + 1, np.int64)
+    off[1:] = np.cumsum(n_d)
+    for d in range(nd):
+        idx = perm[off[d]:off[d + 1]]
+        j = np.arange(len(idx))
+        slots = (j // pc) * chunk + d * pc + (j % pc)
+        wmap[slots] = idx
+    return wmap, C, rb
+
+
+def shard_windows(wmap: np.ndarray, n_dev: int, chunk: int):
+    """The windows of each shard in its slot order (the port's
+    ``_stack_routed``: a shard's lanes without the pad slots)."""
+    w = wmap.reshape(-1, n_dev, chunk // n_dev)
+    out = []
+    for d in range(n_dev):
+        s = w[:, d, :].reshape(-1)
+        out.append(s[s >= 0])
+    return out
+
+
 class DeviceEC:
-    """Runs the EC stages on one device over all reads of a round."""
+    """Runs the EC stages over all reads of a round: on one device, or
+    owner-routed over a mesh (parallel/mesh.py).
+
+    On a mesh (the JAX package's ``DeviceEC(mesh=)``), the bank is
+    replicated once per distinct device.  Per batch, each shard owns a
+    block of plane rows (``lpt_rows``), and every window goes to the
+    shard that owns its read's row (``route_windows``).  A shard aligns
+    its windows with K1 on its device (pass 1 and the retry round) and
+    runs L2-L5 over its own row block; only the per-overlap agreement
+    counters cross shards, summed as integers on the first device, where
+    the overlaps are classified.  Each stage is launched on every shard
+    before any result is fetched.  Without a mesh the same code runs as
+    one shard."""
 
     def __init__(self, store: ReadStore, wl: int = WINDOW_HC,
-                 e_rate: float = 0.04, device="cuda", chunk: int = 0):
-        self.device = resolve_device(device)
+                 e_rate: float = 0.04, device="cuda", chunk: int = 0,
+                 mesh=None):
+        self.mesh = mesh
+        self.devices = list(mesh.devices) if mesh is not None else \
+            [device_of(device)]
+        self.device = self.devices[0]
+        self.n_dev = len(self.devices)
         self.store = store
         self.wl = wl
         self.e_rate = e_rate
-        self.chunk = chunk if chunk > 0 else (
+        chunk = chunk if chunk > 0 else (
             CHUNK_CUDA if self.device.type == "cuda" else CHUNK_CPU)
+        self.chunk = max(chunk // self.n_dev, 1) * self.n_dev
         t0 = time.time()
-        self.bank = build_bank(store, self.device)
+        banks = {}
+        for dev in self.devices:
+            if dev not in banks:
+                b0 = next(iter(banks.values()), None)
+                banks[dev] = build_bank(store, dev) if b0 is None else \
+                    DeviceBank(b0.bank.to(dev), b0.lens.to(dev), b0.L,
+                               b0.R, b0.Lp)
+        self.banks = [banks[d] for d in self.devices]
+        self.bank = self.banks[0]
         STATS["bank_s"] += time.time() - t0
 
-    def _t(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
+    def _t(self, a: np.ndarray, dtype=torch.int64, dev=None) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a)).to(
-            device=self.device, dtype=dtype)
+            device=dev or self.device, dtype=dtype)
 
-    def _align(self, q_rid, q_ws, xlen, t_rid, t_rev, t_ws, last):
-        """L1 over host window arrays: gather + K1 per chunk.  Returns host
-        (err, ys, yn) and device (tb, ic, ib) [n, XL] uint8."""
+    def _owners(self, q_row: np.ndarray, Rp: int):
+        """Window indices of each shard, in its slot order."""
+        if self.mesh is None:
+            return [np.arange(len(q_row))]
+        wmap, _, _ = route_windows(q_row, Rp, self.n_dev, self.chunk)
+        return shard_windows(wmap, self.n_dev, self.chunk)
+
+    def _align(self, s: int, q_rid, q_ws, xlen, t_rid, t_rev, t_ws, last):
+        """L1 of shard ``s`` over host window arrays: gather + K1 per
+        chunk on the shard's device.  Returns device (err, ys, yn) and
+        (tb, ic, ib) [n, XL] uint8, unfetched."""
         XL, e = self.wl, E_BAND
+        dev, bank = self.devices[s], self.banks[s]
         n = len(q_rid)
-        cols = [self._t(a) for a in (q_rid, q_ws, xlen, t_rid, t_rev, t_ws)]
-        last_d = self._t(last, torch.bool)
-        dev = self.device
+        cols = [self._t(a, dev=dev)
+                for a in (q_rid, q_ws, xlen, t_rid, t_rev, t_ws)]
+        last_d = self._t(last, torch.bool, dev)
         err = torch.empty(n, dtype=torch.int32, device=dev)
         ys = torch.empty_like(err)
         yn = torch.empty_like(err)
         tb = torch.empty((n, XL), dtype=torch.uint8, device=dev)
         ic = torch.empty_like(tb)
         ib = torch.empty_like(tb)
+        k0 = banded_tb.launches
         for c0 in range(0, n, self.chunk):
             sl = slice(c0, min(n, c0 + self.chunk))
             x, xl, y, yl = gather_windows(
-                self.bank, XL, e, *(c[sl] for c in cols), last_d[sl])
+                bank, XL, e, *(c[sl] for c in cols), last_d[sl])
+            if x.device != dev:
+                raise RuntimeError(f"shard {s}'s windows are on {x.device}, "
+                                   f"its device is {dev}")
             banded_tb(x, xl, y, yl, e,
                       out=tuple(a[sl] for a in (err, ys, yn, tb, ic, ib)))
-        return (err.cpu().numpy(), ys.cpu().numpy(), yn.cpu().numpy(),
-                tb, ic, ib)
+        sh = SHARD_STATS.setdefault(s, {"windows": 0, "k1_launches": 0})
+        sh["windows"] += n
+        sh["k1_launches"] += banded_tb.launches - k0
+        return err, ys, yn, tb, ic, ib
+
+    def _align_all(self, owners, cols, n: int):
+        """L1 over every shard: all shards launched, then (err, ys, yn)
+        fetched and put back in window order; plus each shard's device
+        (tb, ic, ib)."""
+        outs = [self._align(s, *(c[idx] for c in cols)) if len(idx) else
+                None for s, idx in enumerate(owners)]
+        host = [np.zeros(n, np.int32) for _ in range(3)]
+        planes = []
+        for idx, o in zip(owners, outs):
+            if o is None:
+                planes.append(None)
+                continue
+            for h, t in zip(host, o[:3]):
+                h[idx] = t.cpu().numpy()
+            planes.append(o[3:])
+        return (*host, planes)
 
     def process(self, read_ovs: List[Tuple[int, OverlapRegions]],
                 plans: Optional[Dict[int, dict]] = None
@@ -444,26 +572,36 @@ class DeviceEC:
     def _process_batch(self, read_ovs: List[Tuple[int, OverlapRegions]],
                        plans: Optional[Dict[int, dict]] = None
                        ) -> Tuple[Dict[int, ReadECOut], Dict[int, tuple]]:
-        bank = self.bank
-        R, L = len(read_ovs), bank.L
+        R, L = len(read_ovs), self.bank.L
         e = E_BAND
-        dev = self.device
+        nd = self.n_dev
+        devs = self.devices
         _t0 = time.time()
         # ---- plan all windows (host), unless the plans are given ----
         jobs = []
         ov_base = {}
         n_ov_tot = 0
         win_tot_all = []
+        if plans is None:
+            plans = plan_windows_many(read_ovs, self.wl, self.e_rate,
+                                      with_tws=True)
         for rid, ov in read_ovs:
-            pl = plans[rid] if plans is not None else \
-                plan_read_windows(ov, self.wl, self.e_rate)
+            pl = plans[rid]
             ov_base[rid] = n_ov_tot
             wt = np.zeros(len(ov), np.int32)
             np.add.at(wt, pl["ov_idx"], 1)
             win_tot_all.append(wt)
             jobs.append((rid, ov, pl))
             n_ov_tot += len(ov)
-        row_of = {rid: i for i, (rid, _) in enumerate(read_ovs)}
+        # plane rows: on a mesh, balanced row blocks (one per shard);
+        # else one block holding the batch's reads in order
+        if self.mesh is not None and R:
+            rows, Rp = lpt_rows(np.array([len(p["ws"]) for _, _, p in jobs],
+                                         np.int64), nd)
+        else:
+            rows, Rp = np.arange(R), R
+        rb = Rp // nd
+        row_of = {rid: int(r) for (rid, _), r in zip(read_ovs, rows)}
 
         def cat(parts, dtype):
             return np.concatenate(parts).astype(dtype) if jobs else \
@@ -494,12 +632,15 @@ class DeviceEC:
             return ({rid: ReadECOut(ov, np.zeros(0, np.uint8), z, z, z, z,
                                     z, z) for rid, ov in read_ovs}, {})
 
-        # ---- L1: align every window; tracebacks stay on the device ----
+        # ---- L1: align every window on its shard; tracebacks stay on
+        # the device ----
         t_dev = time.time()
-        err_all, ys_all, yn_all, tb1, ic1, ib1 = self._align(
-            j_qrid, j_ws, j_xlen, j_trid, j_trev, j_tws, j_last)
+        with record_function("ec.L1"):
+            own1 = self._owners(j_qrow, Rp)
+            err_all, ys_all, yn_all, planes1 = self._align_all(
+                own1, (j_qrid, j_ws, j_xlen, j_trid, j_trev, j_tws, j_last),
+                W)
         dev_s = {"align_s": time.time() - t_dev, "vote_s": 0.0}
-        err_all = err_all.astype(np.int32)
         STATS["windows"] += W
         _mark(f"L1 ({W} windows)")
 
@@ -508,20 +649,26 @@ class DeviceEC:
         w_ok = (err_all >= 0) & (err_all <= accept)
 
         # ---- one boundary-retry round (window_align.retry_plan); retried
-        # tracebacks form a second segment, and the aggregation masks per
-        # slot, so a window's pass-1 slot stays dead once its retry wins
+        # tracebacks form a second segment per shard, and the aggregation
+        # masks per slot, so a window's pass-1 slot stays dead once its
+        # retry wins.  Slots: pass-1 windows 0..W-1, then retry j at W + j
         tws_fin = j_tws.copy()
         y0p = tws_fin - e
         win_y = np.stack([y0p + ys_all, y0p + yn_all], axis=1)
         ridx, t2 = retry_plan(j_ovid, j_tws, j_xlen, w_ok, win_y, e)
         ok_slot = w_ok.copy()
-        segs = [(tb1, ic1, ib1, j_qrid, j_qrow, j_ws, j_xlen, j_ovid)]
+        segs = [[(p, own1[s])] if p is not None else []
+                for s, p in enumerate(planes1)]
+        s_cols = [j_qrid, j_qrow, j_ws, j_xlen, j_ovid]
         n_r = len(ridx)
         if n_r:
             t_dev = time.time()
-            e2, ys2, yn2, tb2, ic2, ib2 = self._align(
-                j_qrid[ridx], j_ws[ridx], j_xlen[ridx], j_trid[ridx],
-                j_trev[ridx], t2.astype(np.int64), j_last[ridx])
+            with record_function("ec.L1_retry"):
+                own2 = self._owners(j_qrow[ridx], Rp)
+                e2, ys2, yn2, planes2 = self._align_all(
+                    own2, (j_qrid[ridx], j_ws[ridx], j_xlen[ridx],
+                           j_trid[ridx], j_trev[ridx], t2.astype(np.int64),
+                           j_last[ridx]), n_r)
             dev_s["align_s"] += time.time() - t_dev
             STATS["retry_windows"] += n_r
             acc2 = (e2 >= 0) & (e2 <= accept[ridx])
@@ -532,10 +679,13 @@ class DeviceEC:
             tws_fin[upd] = t2[acc2]
             w_ok[upd] = True
             ok_slot = np.concatenate([ok_slot, acc2])
-            segs.append((tb2, ic2, ib2, j_qrid[ridx], j_qrow[ridx],
-                         j_ws[ridx], j_xlen[ridx], j_ovid[ridx]))
+            for s, p in enumerate(planes2):
+                if p is not None:
+                    segs[s].append((p, W + own2[s]))
+            s_cols = [np.concatenate([c, c[ridx]]) for c in s_cols]
             _mark(f"retry round ({n_r} windows, {int(acc2.sum())} "
                   "recovered)")
+        s_qrid, s_qrow, s_ws, s_xlen, s_ovid = s_cols
 
         # window-SEAM insertion evidence (mirrors WindowBatcher.
         # _inject_seams; applied to the L4 accumulators after the cis
@@ -573,9 +723,8 @@ class DeviceEC:
                     len_s.append(int(g))
                     ov_s.append(int(j_ovid[w]))
                 if rows_s:
-                    seam = tuple(self._t(np.asarray(a, np.int64))
-                                 for a in (rows_s, cols_s, base_s,
-                                           len_s, ov_s))
+                    seam = np.array([rows_s, cols_s, base_s, len_s, ov_s],
+                                    np.int64)
 
         # per-overlap stats
         win_tot = np.concatenate(win_tot_all).astype(np.int64)
@@ -587,8 +736,7 @@ class DeviceEC:
         # window qualifies the overlap; failed windows' slots are
         # already excluded by ok_slot
         usable_ov = win_ok > 0
-        j_ovid_s = np.concatenate([s[7] for s in segs])
-        w_use = ok_slot & usable_ov[j_ovid_s]
+        w_use = ok_slot & usable_ov[s_ovid]
 
         # precise per-overlap target ranges from first/last accepted window
         y0 = tws_fin - e
@@ -606,75 +754,127 @@ class DeviceEC:
             ts_ov[has] = np.maximum(y0[fw] + ys_all[fw], 0)
             te_ov[has] = y0[lw] + yn_all[lw] - 1
 
-        # device columns per segment, cut into aggregation chunks
-        Rp = R
+        # per shard, its slots' device columns cut into aggregation chunks;
+        # rows are local to the shard's block
         lens_np = np.asarray(self.store.lens, np.int64)
         steps = []
-        off = 0
-        for tb, ic, ib, qrid, qrow, ws, xlen, ovid in segs:
-            nb = len(qrid)
-            for c0 in range(0, nb, self.chunk):
-                sl = slice(c0, min(nb, c0 + self.chunk))
-                gs = slice(off + sl.start, off + sl.stop)
-                steps.append((tb[sl], ic[sl], ib[sl], self._t(qrow[sl]),
-                              self._t(ws[sl]), self._t(xlen[sl]),
-                              self._t(lens_np[qrid[sl]]),
-                              self._t(w_use[gs], torch.bool),
-                              self._t(ovid[sl])))
-            off += nb
+        for s, sg in enumerate(segs):
+            dev = devs[s]
+            st = []
+            for (tb, ic, ib), slots in sg:
+                for c0 in range(0, len(slots), self.chunk):
+                    sl = slice(c0, min(len(slots), c0 + self.chunk))
+                    g = slots[sl]
+                    st.append((tb[sl], ic[sl], ib[sl],
+                               self._t(s_qrow[g] - s * rb, dev=dev),
+                               self._t(s_ws[g], dev=dev),
+                               self._t(s_xlen[g], dev=dev),
+                               self._t(lens_np[s_qrid[g]], dev=dev),
+                               self._t(w_use[g], torch.bool, dev),
+                               self._t(s_ovid[g], dev=dev)))
+            steps.append(st)
 
         # ---- L2: raw allele counts ----
         t_dev = time.time()
-        cnt = torch.zeros(5 * Rp * L + 1, dtype=torch.int32, device=dev)
-        for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in steps:
-            raw_counts_add(cnt, L, tb, qrow, ws, xlen, qlen_w, use)
+        with record_function("ec.L2"):
+            cnts = [torch.zeros(5 * rb * L + 1, dtype=torch.int32,
+                                device=dev) for dev in devs]
+            for cnt, st in zip(cnts, steps):
+                for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in st:
+                    raw_counts_add(cnt, L, tb, qrow, ws, xlen, qlen_w, use)
         _mark("L2 raw counts")
 
         # het detection on the device (ec/phase.het_from_counts, integer
-        # form): only packed het bits + 2-bit alts come back
-        rid_rows = self._t(np.array([rid for rid, _ in read_ovs], np.int64))
-        bank_rows = bank.bank[rid_rows, 0, _PAD_L:_PAD_L + L].contiguous()
-        qlen_rows = bank.lens[rid_rows]
-        het_d, alt_d, het_pk, het_cnt = het_planes(
-            cnt[:-1].view(5, Rp, L), bank_rows, qlen_rows)
-        del cnt
+        # form): only packed het bits + 2-bit alts come back.  Rows no
+        # read holds (mesh padding) have length 0: nothing is decided
+        # there.
+        rid_rows = np.zeros(Rp, np.int64)
+        row_valid = np.zeros(Rp, bool)
+        rid_rows[rows] = [rid for rid, _ in read_ovs]
+        row_valid[rows] = True
+        with record_function("ec.het"):
+            bank_rows, qlen_rows, hets = [], [], []
+            for s, (dev, bank) in enumerate(zip(devs, self.banks)):
+                blk = slice(s * rb, (s + 1) * rb)
+                rr = self._t(rid_rows[blk], dev=dev)
+                bank_rows.append(
+                    bank.bank[rr, 0, _PAD_L:_PAD_L + L].contiguous())
+                ql = bank.lens[rr]
+                qlen_rows.append(torch.where(
+                    self._t(row_valid[blk], torch.bool, dev), ql,
+                    torch.zeros_like(ql)))
+                hets.append(het_planes(cnts[s][:-1].view(5, rb, L),
+                                       bank_rows[s], qlen_rows[s]))
+            del cnts
 
-        # ---- L3: per-overlap het agreement -> cis/trans ----
-        n_same = torch.zeros(n_ov_tot + 1, dtype=torch.int32, device=dev)
-        n_flip = torch.zeros_like(n_same)
-        for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in steps:
-            het_agree_add(n_same, n_flip, bank_rows, alt_d, het_d, tb, qrow,
-                          ws, xlen, qlen_w, use, ov)
-        ov_qrow = np.zeros(n_ov_tot, np.int64)
-        for rid, ov in read_ovs:
-            b = ov_base[rid]
-            ov_qrow[b:b + len(ov)] = row_of[rid]
-        is_match_d = classify(n_same[:-1], n_flip[:-1], het_cnt,
-                              self._t(ov_qrow), self._t(usable_ov,
-                                                        torch.bool))
+        # ---- L3: per-overlap het agreement -> cis/trans; the counters
+        # are the only sums across shards ----
+        with record_function("ec.L3"):
+            agree = []
+            for s, (dev, st) in enumerate(zip(devs, steps)):
+                n_same = torch.zeros(n_ov_tot + 1, dtype=torch.int32,
+                                     device=dev)
+                n_flip = torch.zeros_like(n_same)
+                het_d, alt_d = hets[s][0], hets[s][1]
+                for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in st:
+                    het_agree_add(n_same, n_flip, bank_rows[s], alt_d,
+                                  het_d, tb, qrow, ws, xlen, qlen_w, use, ov)
+                agree.append((n_same, n_flip))
+            dev0 = devs[0]
+            n_same = _sum_on(dev0, [a[0] for a in agree])
+            n_flip = _sum_on(dev0, [a[1] for a in agree])
+            het_cnt = torch.cat([h[3].to(dev0) for h in hets])
+            ov_qrow = np.zeros(n_ov_tot, np.int64)
+            for rid, ov in read_ovs:
+                b = ov_base[rid]
+                ov_qrow[b:b + len(ov)] = row_of[rid]
+            is_match_d = classify(n_same[:-1], n_flip[:-1], het_cnt,
+                                  self._t(ov_qrow),
+                                  self._t(usable_ov, torch.bool))
+            is_match = {dev0: is_match_d}
+            for dev in devs:
+                if dev not in is_match:
+                    is_match[dev] = is_match_d.to(dev)
         _mark("L3 + classify")
 
         # ---- L4: cis-only votes + insertion aggregates ----
-        RL = Rp * L
-        votes = torch.zeros(5 * RL + 1, dtype=torch.int32, device=dev)
-        ins_tot = torch.zeros(RL + 1, dtype=torch.int32, device=dev)
-        ins_bc = torch.zeros(4 * RL + 1, dtype=torch.int32, device=dev)
-        ins_lc = torch.zeros(9 * RL + 1, dtype=torch.int32, device=dev)
-        for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in steps:
-            cis_votes_add(votes, ins_tot, ins_bc, ins_lc, L, tb, ic, ib,
-                          qrow, ws, xlen, qlen_w,
-                          cis_mask(use, ov, is_match_d))
-        if seam is not None:
-            seam_add(ins_tot, ins_bc, ins_lc, Rp, L, *seam, is_match_d)
-        del steps, segs, tb1, ic1, ib1
+        RL = rb * L
+        with record_function("ec.L4"):
+            acc = []
+            for s, (dev, st) in enumerate(zip(devs, steps)):
+                votes = torch.zeros(5 * RL + 1, dtype=torch.int32,
+                                    device=dev)
+                ins_tot = torch.zeros(RL + 1, dtype=torch.int32, device=dev)
+                ins_bc = torch.zeros(4 * RL + 1, dtype=torch.int32,
+                                     device=dev)
+                ins_lc = torch.zeros(9 * RL + 1, dtype=torch.int32,
+                                     device=dev)
+                im = is_match[dev]
+                for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in st:
+                    cis_votes_add(votes, ins_tot, ins_bc, ins_lc, L, tb, ic,
+                                  ib, qrow, ws, xlen, qlen_w,
+                                  cis_mask(use, ov, im))
+                if seam is not None:
+                    mine = seam[:, seam[0] // rb == s]
+                    if mine.shape[1]:
+                        mine[0] -= s * rb
+                        seam_add(ins_tot, ins_bc, ins_lc, rb, L,
+                                 *(self._t(a, dev=dev) for a in mine), im)
+                acc.append((votes, ins_tot, ins_bc, ins_lc))
+            del steps, segs, planes1
         # ---- L5: consensus decisions + ambiguity mask on the device ----
-        subw_pk, ins_pk, ib_pk, il_pk, amb_pk = decide_planes(
-            votes[:-1].view(5, Rp, L), ins_tot[:-1].view(Rp, L),
-            ins_bc[:-1].view(4, Rp, L), ins_lc[:-1].view(9, Rp, L), het_d,
-            bank_rows, qlen_rows)
-        (het_pk_h, ismatch_h, subw_h, ins_h, ib_h, il_h, amb_h) = (
-            t.cpu().numpy() for t in (het_pk, is_match_d, subw_pk, ins_pk,
-                                      ib_pk, il_pk, amb_pk))
+        with record_function("ec.L5"):
+            packed = []
+            for s in range(nd):
+                votes, ins_tot, ins_bc, ins_lc = acc[s]
+                packed.append((hets[s][2],) + decide_planes(
+                    votes[:-1].view(5, rb, L), ins_tot[:-1].view(rb, L),
+                    ins_bc[:-1].view(4, rb, L), ins_lc[:-1].view(9, rb, L),
+                    hets[s][0], bank_rows[s], qlen_rows[s]))
+            ismatch_h = is_match_d.cpu().numpy()
+            (het_pk_h, subw_h, ins_h, ib_h, il_h, amb_h) = (
+                np.concatenate([p[k].cpu().numpy() for p in packed])
+                for k in range(6))
         is_match_all = ismatch_h[:n_ov_tot]
         dev_s["vote_s"] = time.time() - t_dev
         het_bits = _unpack_bits(het_pk_h, L)
@@ -705,3 +905,11 @@ class DeviceEC:
             STATS[k] += v
         STATS["host_s"] += time.time() - _t0 - sum(dev_s.values())
         return out, cns_in
+
+
+def _sum_on(dev: torch.device, ts: List[torch.Tensor]) -> torch.Tensor:
+    """Integer sum of per-shard tensors on ``dev`` (the port's psum)."""
+    out = ts[0].to(dev)
+    for t in ts[1:]:
+        out = out + t.to(dev)
+    return out

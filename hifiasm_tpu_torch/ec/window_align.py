@@ -159,12 +159,14 @@ def plan_read_windows(ov: OverlapRegions, wl: int, e_rate: float,
     return pl
 
 
-def plan_windows_many(items, wl: int, e_rate: float):
-    """Vectorized ``plan_read_windows(..., with_tws=False)`` over a whole
-    chunk: ONE numpy pass over the concatenated overlap columns instead
-    of a per-read Python loop (the loop costs seconds per multi-Mb chunk
-    at genome scale).  ``items``: [(rid, OverlapRegions)] -> {rid: plan}
-    with per-read views into the shared arrays (identical contents)."""
+def plan_windows_many(items, wl: int, e_rate: float, with_tws: bool = False):
+    """Vectorized ``plan_read_windows`` over a whole chunk: ONE numpy pass
+    over the concatenated overlap columns instead of a per-read Python
+    loop (the loop costs seconds per multi-Mb chunk at genome scale).
+    ``items``: [(rid, OverlapRegions)] -> {rid: plan} with per-read views
+    into the shared arrays (identical contents).  ``with_tws`` (host
+    hits) adds t_ws, from one search over every overlap's hits keyed by
+    (overlap, self offset)."""
     z = np.zeros(0, np.int64)
     rids = [rr for rr, _ in items]
     n_ovs = np.array([len(ov) for _, ov in items], np.int64)
@@ -197,6 +199,7 @@ def plan_windows_many(items, wl: int, e_rate: float):
                    THRESHOLD_MAX_SIZE)
     w_read = ov_read[ov_idx_g]
     bounds = np.searchsorted(w_read, np.arange(len(items) + 1))
+    t_ws = _tws_many(items, ov_idx_g, ws) if with_tws else None
     out = {}
     for i, rr in enumerate(rids):
         sl = slice(int(bounds[i]), int(bounds[i + 1]))
@@ -204,7 +207,29 @@ def plan_windows_many(items, wl: int, e_rate: float):
                        if bounds[i + 1] > bounds[i] else z,
                        ws=ws[sl], wlen=wlen[sl], thre=thre[sl],
                        last=last[sl])
+        if t_ws is not None:
+            out[rr]["t_ws"] = t_ws[sl]
     return out
+
+
+def _tws_many(items, ov_idx_g, ws):
+    """plan_read_windows' t_ws for every window of a chunk: the nearest
+    chain hit at or after the window start within its overlap's hits."""
+    nz = [ov for _, ov in items if len(ov)]
+    n_hits = np.concatenate([ov.n_hits.astype(np.int64) for ov in nz])
+    base = np.cumsum([0] + [len(ov.hit_self) for ov in nz[:-1]])
+    start = np.concatenate([ov.hit_start.astype(np.int64) + b
+                            for ov, b in zip(nz, base)])
+    h_self = np.concatenate([ov.hit_self.astype(np.int64) for ov in nz])
+    h_t = np.concatenate([ov.hit_t.astype(np.int64) for ov in nz])
+    src = np.repeat(start - np.cumsum(n_hits) + n_hits, n_hits) + \
+        np.arange(int(n_hits.sum()))
+    big = np.int64(1) << np.int64(33)      # self offsets stay below 2^32
+    keys = np.repeat(np.arange(len(n_hits)), n_hits) * big + h_self[src]
+    seg_end = np.cumsum(n_hits)
+    hi = np.minimum(np.searchsorted(keys, ov_idx_g * big + ws),
+                    seg_end[ov_idx_g] - 1)
+    return h_t[src[hi]] + (ws - h_self[src[hi]])
 
 
 _T2_NONE = np.int64(-(1 << 62))

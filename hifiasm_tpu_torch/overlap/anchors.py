@@ -278,27 +278,24 @@ def chain_anchors(an: Anchors, rid: int, rlen: int, tlens: np.ndarray,
 def chain_many(reads, tlens: np.ndarray, params: ChainParams,
                max_n_chain: int = 100,
                device_threshold: Optional[int] = None,
-               flat: bool = False):
+               flat: bool = False, device="cuda"):
     """Chain anchors of MANY reads at once.
 
     ``reads``: [(rid, Anchors, rlen)].  All (target, strand) groups across
     all reads are bucketed by size, padded, and scored by the vectorized
     DP in a few large launches; only the cheap per-group traceback /
-    multi-copy extraction stays scalar.  On an accelerator backend,
-    buckets with >= device_threshold cells score on device
-    (ops/chain_jax.chain_scores_batch); smaller buckets and the CPU
-    backend use the numpy mirror.
+    multi-copy extraction stays scalar.  With ``device_threshold``,
+    buckets with >= device_threshold cells score on ``device``
+    (ops/chain_dev.chain_scores_batch) and smaller buckets on the numpy
+    mirror; the JAX package takes that route only on an accelerator
+    backend, the port on the device it is given.
     """
     from hifiasm_tpu_torch.ops.chain import chain_scores_batch_np, extract_chains
 
     # the device chain scorer is opt-in (pass device_threshold): the host
     # native kernel wins below enormous batch sizes, and the scorer bakes
     # the HiFi k=51 penalty constants
-    use_device = False
-    if device_threshold is not None:
-        raise NotImplementedError(
-            "the device chain scorer (ops/chain_jax) is not ported yet; "
-            "see ROADMAP.md Queue 1")
+    use_device = device_threshold is not None
 
     # native whole-batch DP + traceback on host when available: columns
     # are plain concatenations of the per-read anchor arrays (groups are
@@ -411,9 +408,35 @@ def chain_many(reads, tlens: np.ndarray, params: ChainParams,
             narr[bi] = m
             xlarr[bi] = rlen
             ylarr[bi] = yl
-        f, pre = chain_scores_batch_np(cols[0], cols[1], cols[2],
-                                       cols[3], narr, xlarr, ylarr,
-                                       params)
+        if G * N >= device_threshold and N <= 2048:
+            import torch
+
+            from hifiasm_tpu_torch.device import resolve_device
+            from hifiasm_tpu_torch.ops.chain_dev import chain_scores_batch
+
+            # pad G to a power of two, as the JAX package bounds its
+            # compiled shapes
+            Gp = 256
+            while Gp < G:
+                Gp *= 2
+            pad = Gp - G
+            dev = resolve_device(device)
+            cols = [np.concatenate([c, np.zeros((pad, N), np.int64)])
+                    for c in cols]
+            narr_p = np.concatenate([narr, np.zeros(pad, np.int64)])
+            xl_p = np.concatenate([xlarr, np.ones(pad, np.int64)])
+            yl_p = np.concatenate([ylarr, np.ones(pad, np.int64)])
+            fd, pd = chain_scores_batch(
+                *(torch.as_tensor(a.astype(np.int32)).to(dev)
+                  for a in (*cols, narr_p, xl_p, yl_p)),
+                pg_q16=params.pg_q16, pskip_q16=params.pskip_q16,
+                bw_q16=params.bw_q16, invbw_q4=params.invbw_q4)
+            f = fd.cpu().numpy()[:G].astype(np.int64)
+            pre = pd.cpu().numpy()[:G].astype(np.int64)
+        else:
+            f, pre = chain_scores_batch_np(cols[0], cols[1], cols[2],
+                                           cols[3], narr, xlarr, ylarr,
+                                           params)
         for bi, g in enumerate(sel):
             ridx, s, e, tid, yl = groups[g]
             _, an, rlen = reads[ridx]
