@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels    # phases 1-3b: build, K1 and K2
     python3 chip_smoke.py --mesh       # phases 1, 2, 4 and 9-9d: the
                                        # multi-device path beside phase 4
+    python3 chip_smoke.py --index      # phases 1, 2, 10 and 10b: the
+                                       # device index stages
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -75,9 +77,28 @@ Phases, in order; any failure raises and the script exits nonzero:
 9c. ``parallel.dryrun.dryrun_multichip`` on the card's mesh;
 9d. ``--profile``: phase 5's small store with ``profile_dir`` set must
    write one Chrome trace per EC round, with K1's kernel in it
-   (scripts/trace_idle.py reads it).
+   (scripts/trace_idle.py reads it);
+10. the device index stages that no entry point calls yet, on phase 4's
+   store and settings (k = w = 51, the filter table ``assemble`` builds),
+   each held to its host mirror and timed beside it: the device sketch
+   (``ops/sketch_dev.sketch_many_device``) against the native sketch on
+   every field of every read; the device table build
+   (``index/pos_table_dev.build_table_device``) against the host build,
+   peaks included, and serving the grouped gather's first chunk as the
+   uploaded host table does; the per-read anchor gather
+   (``collect_anchors_device``) against ``collect_anchors_many``; the
+   exact chain DP and extraction (``ops/chain_dev.chain_exact_batch``,
+   ``extract_chains_batch``) on the groups the device front end sends to
+   the host DP (not quick, at most 2,048 anchors; bucketed by 32, 128,
+   512 and 2,048 anchors; up to CHAIN_CELLS cells a bucket in group
+   order, the rest counted as left out) and QUICK_BATCH quick groups a
+   bucket, against ``chain_dp_native`` and ``extract_chains``;
+10b. the five functions on phase 5's small store on cuda and on cpu:
+   every output equal.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the kernel table holds phase 10's times and counts as
+``{"device_index": ...}``.  The line before the last is the kernel
+table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
 """
@@ -1235,6 +1256,389 @@ def phase_k2_ul(cap, rec: dict):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the device index stages that no entry point calls yet
+
+CHAIN_CELLS = 1 << 22       # [groups, N] cells a bucket's DP call may take
+QUICK_BATCH = 256           # quick groups run through the DP a bucket
+
+
+def _sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(dev, fn):
+    """(result, host seconds) of fn(), synced on ``dev`` at the end."""
+    _sync(dev)
+    t0 = time.time()
+    out = fn()
+    _sync(dev)
+    return out, time.time() - t0
+
+
+def _same_mz(a, b, tag):
+    """Raise unless two per-read minimizer lists are equal field by
+    field."""
+    if len(a) != len(b):
+        raise AssertionError(f"{tag}: {len(a)} vs {len(b)} reads")
+    for i, (x, y) in enumerate(zip(a, b)):
+        for f in ("hash", "pos", "rev", "span", "cnt"):
+            u, v = getattr(x, f), getattr(y, f)
+            if u.dtype != v.dtype or not np.array_equal(u, v):
+                raise AssertionError(f"{tag}: read {i} differs in {f}")
+
+
+def _same_fields(a, b, fields, tag):
+    for f in fields:
+        u, v = getattr(a, f), getattr(b, f)
+        if hasattr(u, "cpu"):
+            u, v = u.cpu().numpy(), v.cpu().numpy()
+        if u.dtype != v.dtype or not np.array_equal(u, v):
+            raise AssertionError(f"{tag}: {f} differs")
+
+
+def _same_anchors(a, b, tag):
+    if len(a) != len(b):
+        raise AssertionError(f"{tag}: {len(a)} vs {len(b)} reads")
+    for i, (x, y) in enumerate(zip(a, b)):
+        _same_fields(x, y, ("tid", "rev", "self_off", "t_off", "span",
+                            "weight"), f"{tag}: read {i}")
+
+
+def _chain_batches(mzs, table, lens, hom, params, dev):
+    """The (read, tid, rev) groups of the device front end (its grouped
+    gather and quick pass, as overlap/chain_device.py runs them), by
+    bucket: the groups the front end sends to the host DP (not quick,
+    at most 2,048 anchors), in group order up to CHAIN_CELLS cells a
+    bucket, and the first QUICK_BATCH quick groups.  Returns
+    {Nb: {"full": cols, "quick": cols, "nonquick_total": n}} with cols
+    the host (so, to, span, w, n, xl, yl) arrays."""
+    import torch
+
+    from hifiasm_tpu_torch.index.pos_table_dev import (
+        collect_anchor_groups_device,
+    )
+    from hifiasm_tpu_torch.ops.chain_batch import chain_quick_batch
+    from hifiasm_tpu_torch.overlap.chain_device import (
+        _BUCKETS, _SLAB_CELLS, gather_groups,
+    )
+
+    lens_d = torch.from_numpy(np.asarray(lens, np.int64)).to(dev)
+    out = {Nb: {"full": [], "quick": [], "nonquick_total": 0}
+           for Nb in _BUCKETS}
+    for cols, meta in collect_anchor_groups_device(
+            mzs, table, list(range(len(mzs))), lens, hom):
+        if cols is None:
+            continue
+        gs_d = torch.from_numpy(meta["g_start"]).to(dev)
+        sz_d = torch.from_numpy(meta["g_end"] - meta["g_start"]).to(dev)
+        xl_d = lens_d[torch.from_numpy(meta["g_read"]).to(dev)]
+        yl_d = lens_d[torch.from_numpy(meta["g_tid"]).to(dev)]
+        sizes = meta["g_end"] - meta["g_start"]
+        lo = 0
+        for Nb in _BUCKETS:
+            gids = np.flatnonzero((sizes > lo) & (sizes <= Nb))
+            lo = Nb
+            rec = out[Nb]
+            slab = max(1, _SLAB_CELLS // Nb)
+            for r0 in range(0, len(gids), slab):
+                gi = torch.from_numpy(gids[r0:r0 + slab]).to(dev)
+                so, to, sp, w = gather_groups(cols, gs_d, gi, sz_d[gi], Nb)
+                _, _, quick = chain_quick_batch(
+                    so, to, sp, w, sz_d[gi], xl_d[gi], yl_d[gi],
+                    quick_check=params.quick_check, pg_q16=params.pg_q16,
+                    pskip_q16=params.pskip_q16, bw_q16=params.bw_q16,
+                    invbw_q4=params.invbw_q4)
+                allc = (so, to, sp, w, sz_d[gi], xl_d[gi], yl_d[gi])
+                nq = torch.nonzero(~quick).flatten()
+                rec["nonquick_total"] += int(nq.numel())
+                for key, rows, cap in (
+                        ("full", nq, CHAIN_CELLS // Nb),
+                        ("quick", torch.nonzero(quick).flatten(),
+                         QUICK_BATCH)):
+                    room = cap - sum(len(c[4]) for c in rec[key])
+                    if room > 0 and rows.numel():
+                        r = rows[:room]
+                        rec[key].append(tuple(t[r].cpu().numpy()
+                                              for t in allc))
+    for rec in out.values():
+        for key in ("full", "quick"):
+            rec[key] = tuple(np.concatenate(c) for c in zip(*rec[key])) \
+                if rec[key] else None
+    return out
+
+
+def _run_chains(cols, params, dev):
+    """chain_exact_batch then extract_chains_batch on ``dev``; returns
+    the host outputs and the two times."""
+    from hifiasm_tpu_torch.ops.chain_dev import (
+        chain_exact_batch, extract_chains_batch,
+    )
+
+    so, to, sp, w, n, xl, yl = cols
+    (f, pre, quick), t_dp = _timed(dev, lambda: chain_exact_batch(
+        so, to, sp, w, n, xl, yl, max_iter=params.max_iter,
+        max_skip=params.max_skip, max_dis=params.max_dis,
+        quick_check=params.quick_check, pg_q16=params.pg_q16,
+        pskip_q16=params.pskip_q16, bw_q16=params.bw_q16,
+        invbw_q4=params.invbw_q4, device=dev))
+    ext, t_ex = _timed(dev, lambda: extract_chains_batch(
+        f, pre, quick, so, to, n, xl, yl, mcopy_num=params.mcopy_num,
+        mcopy_khit_cut=params.mcopy_khit_cut, mcopy_q16=params.mcopy_q16,
+        device=dev))
+    return ((f.cpu().numpy(), pre.cpu().numpy(), quick.cpu().numpy()),
+            tuple(t.cpu().numpy() for t in ext), t_dp, t_ex)
+
+
+def _check_chains(cols, dp, ext, params, tag):
+    """Hold the device DP and extraction to the native DP
+    (chain_dp_native) and the host extraction (extract_chains), group by
+    group; returns (host DP seconds, host extraction seconds)."""
+    from hifiasm_tpu_torch.native import chain_dp_native
+    from hifiasm_tpu_torch.ops.chain import extract_chains
+
+    so, to, sp, w, n, xl, yl = cols
+    f, pre, quick = dp
+    label, cnt, sc, _, _, nh = ext
+    t_dp = t_ex = 0.0
+    for b in range(len(n)):
+        m = int(n[b])
+        g = tuple(a[b, :m].astype(np.int64) for a in (so, to, sp, w))
+        t0 = time.time()
+        fr, prer, qr = chain_dp_native(*g, int(xl[b]), int(yl[b]), params)
+        t1 = time.time()
+        chains = extract_chains(fr, prer, g[0], g[1], int(xl[b]),
+                                int(yl[b]), params, quick=qr)
+        t_dp += t1 - t0
+        t_ex += time.time() - t1
+        if bool(quick[b]) != qr or not np.array_equal(f[b, :m], fr) or \
+                not np.array_equal(pre[b, :m], prer):
+            raise AssertionError(f"{tag}: group {b} (n {m}): the DP "
+                                 "differs from chain_dp_native")
+        if int(cnt[b]) != len(chains):
+            raise AssertionError(f"{tag}: group {b}: {int(cnt[b])} chains "
+                                 f"against the host's {len(chains)}")
+        for k, (sck, idx) in enumerate(chains):
+            if int(sc[b, k]) != sck or int(nh[b, k]) != len(idx) or \
+                    not np.array_equal(np.flatnonzero(label[b, :m] == k),
+                                       idx):
+                raise AssertionError(f"{tag}: group {b} chain {k} differs "
+                                     "from extract_chains")
+    return t_dp, t_ex
+
+
+def phase_index(genome_len: int, depth: float, read_len: int, err: float,
+                dev="cuda"):
+    """Phase 10: the five device index stages on phase 4's store and
+    settings, each held to its host mirror and timed beside it: the
+    device sketch (against the native sketch), the device table build
+    (against the host build, peaks included; it must serve the grouped
+    gather as the uploaded host table does), the per-read anchor gather
+    (against collect_anchors_many), and the exact chain DP and
+    extraction on the groups the front end sends to the host DP, plus a
+    batch of quick groups a bucket (against chain_dp_native and
+    extract_chains).  Returns the record of times and counts."""
+    import torch
+
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.index.pos_table import (
+        build_filter_table, build_position_table,
+    )
+    from hifiasm_tpu_torch.index.pos_table_dev import (
+        build_table_device, collect_anchor_groups_device,
+        collect_anchors_device, device_table_from_host,
+    )
+    from hifiasm_tpu_torch.native import sketch_many_native
+    from hifiasm_tpu_torch.ops.chain import ChainParams
+    from hifiasm_tpu_torch.ops.sketch_dev import (
+        default_rows, sketch_many_device,
+    )
+    from hifiasm_tpu_torch.overlap.anchors import collect_anchors_many
+
+    t_all = time.time()
+    store = _store(genome_len, depth, read_len, err, seed=11)
+    codes = [store.get_codes(i) for i in range(store.n_reads)]
+    cfg = HifiasmConfig()
+    k, w = cfg.k, cfg.w
+    ft, _, _ = build_filter_table(
+        codes, k, high_factor=cfg.high_factor, max_kmer_cnt=cfg.max_kmer_cnt,
+        min_hist_cnt=cfg.min_hist_kmer_cnt, bf_shift=cfg.bf_shift)
+    keep_max = min(cfg.max_kmer_cnt, 4095)     # as ec/pipeline._index
+    rec = {"reads": store.n_reads, "bases": int(store.total_bases),
+           "k": k, "w": w, "filter_keys": len(ft)}
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    # 10.1 sketch
+    sketch_many_device(codes[:64], k, w, ft=ft, device=dev)   # warm-up
+    mz_h, rec["sketch_host_s"] = _timed(
+        dev, lambda: sketch_many_native(codes, k, w, ft))
+    mz_d, rec["sketch_dev_s"] = _timed(
+        dev, lambda: sketch_many_device(codes, k, w, ft=ft, device=dev))
+    if torch.device(dev).type == "cuda":
+        rec["sketch_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    _same_mz(mz_d, mz_h, "sketch")
+    rec["sketch_rows_a_chunk"] = default_rows(max(map(len, codes)))
+    rec["minimizers"] = int(sum(map(len, mz_d)))
+    print(f"[index] sketch: {rec['minimizers']} minimizers of "
+          f"{store.n_reads} reads equal to the native sketch; device "
+          f"{rec['sketch_dev_s']:.3f} s ({rec['sketch_rows_a_chunk']} rows "
+          f"a chunk), host {rec['sketch_host_s']:.3f} s", flush=True)
+
+    # 10.2 table build
+    it = iter(mz_h)
+    (pt, ph, pht, _), rec["build_host_s"] = _timed(
+        dev, lambda: build_position_table(
+            codes, k, w, ft=ft, min_hist_cnt=cfg.min_hist_kmer_cnt,
+            keep_max=keep_max, sketcher=lambda _c: next(it)))
+    (tbl, dph, dpht), rec["build_dev_s"] = _timed(
+        dev, lambda: build_table_device(
+            mz_d, keep_max=keep_max, min_hist_cnt=cfg.min_hist_kmer_cnt,
+            device=dev))
+    _same_fields(tbl.to_host(), pt, ("hashes", "start", "count", "rid",
+                                     "pos", "rev", "span"), "table")
+    if (dph, dpht) != (ph, pht):
+        raise AssertionError(f"peaks {(dph, dpht)} against the host's "
+                             f"{(ph, pht)}")
+    rec.update(keys=tbl.n_distinct, postings=tbl.tot_pos, peak_hom=ph,
+               peak_het=pht)
+    hom = ph if ph > 0 else cfg.hom_cov
+    rids = list(range(store.n_reads))
+    up = device_table_from_host(pt, dev)
+    (ca, ma), (cb, mb) = (next(collect_anchor_groups_device(
+        mz_d, t, rids, store.lens, hom)) for t in (tbl, up))
+    for f in ("g_start", "g_end", "g_read", "g_tid", "g_rev"):
+        if not np.array_equal(ma[f], mb[f]):
+            raise AssertionError(f"grouped gather on the device-built "
+                                 f"table: {f} differs")
+    for f in ca:
+        if not torch.equal(ca[f], cb[f]):
+            raise AssertionError(f"grouped gather on the device-built "
+                                 f"table: column {f} differs")
+    rec["served_groups_first_chunk"] = len(ma["g_start"])
+    del ca, cb, up
+    print(f"[index] table: {tbl.n_distinct} keys, {tbl.tot_pos} postings "
+          f"and peaks ({ph}, {pht}) equal to the host build; device "
+          f"{rec['build_dev_s']:.3f} s, host {rec['build_host_s']:.3f} s; "
+          f"serves {rec['served_groups_first_chunk']} groups of the first "
+          f"chunk as the uploaded table does", flush=True)
+
+    # 10.3 per-read anchors
+    an_h, rec["anchors_host_s"] = _timed(
+        dev, lambda: collect_anchors_many(mz_h, pt, rids, store.lens, hom))
+    an_d, rec["anchors_dev_s"] = _timed(
+        dev, lambda: collect_anchors_device(mz_d, tbl, rids, store.lens,
+                                            hom))
+    _same_anchors(an_d, an_h, "anchors")
+    rec["anchors"] = int(sum(map(len, an_d)))
+    del an_h, an_d
+    print(f"[index] anchors: {rec['anchors']} equal to "
+          f"collect_anchors_many; device {rec['anchors_dev_s']:.3f} s, "
+          f"host {rec['anchors_host_s']:.3f} s", flush=True)
+
+    # 10.4 exact chains
+    params = ChainParams.for_k(k)
+    batches = _chain_batches(mz_d, tbl, store.lens, hom, params, dev)
+    rec["chains"] = {}
+    for Nb, b in batches.items():
+        r = {"N": Nb, "nonquick_groups": b["nonquick_total"]}
+        for key in ("full", "quick"):
+            cols = b[key]
+            if cols is None:
+                r[key] = None
+                continue
+            dp, ext, t_dp, t_ex = _run_chains(cols, params, dev)
+            h_dp, h_ex = _check_chains(cols, dp, ext, params,
+                                       f"chains N={Nb} {key}")
+            B, nq = len(cols[4]), int(dp[2].sum())
+            steps = int(cols[4][~dp[2]].max(initial=0))
+            # the DP's traffic: ~40 int32 [B, N] planes a step, one step
+            # an anchor of the longest group the quick pass leaves to it
+            r[key] = {"groups": B, "max_n": int(cols[4].max()),
+                      "quick": nq, "dp_s": t_dp, "extract_s": t_ex,
+                      "host_dp_s": h_dp, "host_extract_s": h_ex,
+                      "est_bytes": 160 * (B - nq) * Nb * steps}
+        r["left_out_by_cap"] = b["nonquick_total"] - (
+            r["full"]["groups"] if r["full"] else 0)
+        rec["chains"][str(Nb)] = r
+        print(f"[index] chains N={Nb}: " + json.dumps(r), flush=True)
+    if torch.device(dev).type == "cuda":
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    rec["wall_s"] = time.time() - t_all
+    return rec
+
+
+def phase_index_small(dev_a="cuda", dev_b="cpu"):
+    """Phase 10b: the five functions on phase 5's small store, on
+    ``dev_a`` and on ``dev_b``: every output equal."""
+    import torch
+
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.index.pos_table import build_filter_table
+    from hifiasm_tpu_torch.index.pos_table_dev import (
+        build_table_device, collect_anchors_device,
+    )
+    from hifiasm_tpu_torch.ops.chain import ChainParams
+    from hifiasm_tpu_torch.ops.sketch_dev import sketch_many_device
+
+    store = _store(12000, 12, 1800, 0.004, seed=11)
+    codes = [store.get_codes(i) for i in range(store.n_reads)]
+    cfg = HifiasmConfig()
+    k, w = cfg.k, cfg.w
+    ft, _, _ = build_filter_table(codes, k, bf_shift=cfg.bf_shift)
+    params = ChainParams.for_k(k)
+    rids = list(range(store.n_reads))
+    outs = {}
+    for dev in (dev_a, dev_b):
+        mzs = sketch_many_device(codes, k, w, ft=ft, device=dev,
+                                 row_chunk=7)
+        tbl, ph, pht = build_table_device(mzs, device=dev)
+        hom = ph if ph > 0 else cfg.hom_cov
+        an = collect_anchors_device(mzs, tbl, rids, store.lens, hom,
+                                    chunk_mz=500)
+        # every (read, tid, rev) group as one [B, N] batch
+        groups = []
+        for r, a in enumerate(an):
+            cut = np.flatnonzero((np.diff(a.tid.astype(np.int64)) != 0) |
+                                 (np.diff(a.rev) != 0)) + 1
+            for s, e in zip(np.r_[0, cut], np.r_[cut, len(a)]):
+                if e > s:
+                    groups.append((r, a, s, e))
+        N = max(e - s for _, _, s, e in groups)
+        cols = [np.zeros((len(groups), N), np.int64) for _ in range(4)]
+        n = np.zeros(len(groups), np.int64)
+        xl = np.zeros(len(groups), np.int64)
+        yl = np.zeros(len(groups), np.int64)
+        for g, (r, a, s, e) in enumerate(groups):
+            for c, f in zip(cols, ("self_off", "t_off", "span", "weight")):
+                c[g, :e - s] = getattr(a, f)[s:e]
+            n[g], xl[g], yl[g] = e - s, store.lens[r], store.lens[a.tid[s]]
+        dp, ext, _, _ = _run_chains((*cols, n, xl, yl), params, dev)
+        outs[dev] = (mzs, tbl.to_host(), (ph, pht), an, dp, ext)
+    (ma, ta, pa, aa, da, ea), (mb, tb, pb, ab, db, eb) = \
+        outs[dev_a], outs[dev_b]
+    _same_mz(ma, mb, "10b sketch")
+    _same_fields(ta, tb, ("hashes", "start", "count", "rid", "pos", "rev",
+                          "span"), "10b table")
+    if pa != pb:
+        raise AssertionError(f"10b peaks {pa} against {pb}")
+    _same_anchors(aa, ab, "10b anchors")
+    for x, y, name in zip(da + ea, db + eb, ("f", "pre", "quick", "label",
+                                             "cnt", "sc", "first", "last",
+                                             "nh")):
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"10b chains: {name} differs")
+    print(f"[index-small] {dev_a} and {dev_b}: sketch ({sum(map(len, ma))} "
+          f"minimizers), table ({len(ta.hashes)} keys), anchors "
+          f"({sum(map(len, aa))}), chains ({len(da[2])} groups, N "
+          f"{da[0].shape[1]}, {int(da[2].sum())} quick) equal", flush=True)
+    return {"reads": store.n_reads, "groups": int(len(da[2])),
+            "N": int(da[0].shape[1]), "quick": int(da[2].sum())}
+
+
 def phase_build():
     """Compile every CUDA kernel (nvcc) and the native host library (g++)
     at once; raise if any does not load."""
@@ -1272,8 +1676,10 @@ def main(argv) -> int:
 
     kernels_only = argv == ["--kernels"]
     mesh_only = argv == ["--mesh"]
-    if argv and not (kernels_only or mesh_only):
-        print("usage: chip_smoke.py [--kernels | --mesh]", file=sys.stderr)
+    index_only = argv == ["--index"]
+    if argv and not (kernels_only or mesh_only or index_only):
+        print("usage: chip_smoke.py [--kernels | --mesh | --index]",
+              file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -1300,6 +1706,15 @@ def main(argv) -> int:
     out_dir = os.path.join(ROOT, "build", "smoke")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
+    if index_only:
+        index = phase_index(4_000_000, MAIN_DEPTH, 15000, 0.003)
+        index["small"] = phase_index_small()
+        print(f"[done] {time.time() - t_start:.1f} s", flush=True)
+        print(json.dumps({"device_index": index}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if mesh_only:
         phase_main(out_dir, 4_000_000, MAIN_DEPTH, 15000, 0.003)
         phase_mesh(out_dir, os.path.join(out_dir, "asm.bp.p_ctg.gfa"),
@@ -1357,8 +1772,12 @@ def main(argv) -> int:
     phase_dryrun()
     phase_profile(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
+    # 10. the device index stages at phase 4's size; 10b card against CPU
+    index = phase_index(4_000_000, MAIN_DEPTH, 15000, 0.003)
+    index["small"] = phase_index_small()
 
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
+    print(json.dumps({"device_index": index}), flush=True)
     print(json.dumps({"kernels": [rec, rec_k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,9 @@ Every value is ``torch.int32`` so overflow and shifts wrap exactly as
 JAX's int32 does: Python-int operands keep int32, and each cumulative
 op and reduction names ``dtype=torch.int32`` (PyTorch would otherwise
 promote integer sums to int64).  Integer division floors, as ``//`` does
-in JAX.  The full DP (``chain_exact_batch``, ``extract_chains_batch``)
-is not ported yet (ROADMAP.md Queue 1).
+in JAX.  The full DP with the scalar engine's control flow and the
+chain extraction (``chain_exact_batch``, ``extract_chains_batch``) are
+in ops/chain_dev.py.
 """
 
 from __future__ import annotations
