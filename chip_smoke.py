@@ -476,6 +476,7 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
     from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.config import HifiasmConfig
     from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+    from hifiasm_tpu_torch.utils import trace
 
     t0 = time.time()
     store = _store(genome_len, depth, read_len, err, seed=11)
@@ -486,9 +487,7 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
     # one device on any host (a host of several cards would take the mesh)
     cfg = HifiasmConfig(output_prefix=pfx, ignore_bin=True, mesh_devices=1)
     torch.cuda.reset_peak_memory_stats()
-    for st in (D.STATS, P.STATS, A.STATS, C.STATS):
-        for k in st:
-            st[k] = 0
+    trace.reset()
     banded_tb.launches = 0
     t0 = time.time()
     res = assemble(store, cfg, device="cuda")
@@ -554,6 +553,7 @@ def phase_mesh(out_dir: str, main_gfa: str, genome_len: int, depth: float,
     from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.config import HifiasmConfig
     from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+    from hifiasm_tpu_torch.utils import trace
 
     mesh, how = card_mesh()
     print(f"[mesh] {how}: {[str(d) for d in mesh.devices]}", flush=True)
@@ -562,10 +562,7 @@ def phase_mesh(out_dir: str, main_gfa: str, genome_len: int, depth: float,
     cfg = HifiasmConfig(output_prefix=pfx, ignore_bin=True)
     for dev in mesh.distinct:
         torch.cuda.reset_peak_memory_stats(dev)
-    for st in (D.STATS, P.STATS, I.STATS):
-        for k in st:
-            st[k] = 0
-    D.SHARD_STATS.clear()
+    trace.reset()
     banded_tb.launches = 0
     t0 = time.time()
     res = assemble(store, cfg, device="cuda", mesh=mesh)
@@ -824,6 +821,7 @@ def phase_diploid(out_dir: str, genome_len: int, depth: float,
     from hifiasm_tpu_torch.config import HifiasmConfig
     from hifiasm_tpu_torch.ops.banded_fwd import banded_forward
     from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+    from hifiasm_tpu_torch.utils import trace
 
     t0 = time.time()
     store, n_pat, opts = diploid_inputs(out_dir, genome_len, depth,
@@ -837,8 +835,7 @@ def phase_diploid(out_dir: str, genome_len: int, depth: float,
         pfx = os.path.join(out_dir, mode)
         run_store = _copy_store(store)     # EC corrects a store in place
         torch.cuda.reset_peak_memory_stats()
-        for k in H.STATS:
-            H.STATS[k] = 0
+        trace.reset()
         banded_tb.launches = 0
         banded_forward.launches = 0
         t0 = time.time()
@@ -1093,6 +1090,7 @@ def phase_ul(out_dir: str, genome_len: int, depth: float, read_len: int,
     from hifiasm_tpu_torch.io.readstore import ReadStore
     from hifiasm_tpu_torch.ops.banded_fwd import banded_forward
     from hifiasm_tpu_torch.ops.banded_tb import banded_tb
+    from hifiasm_tpu_torch.utils import trace
 
     synth = _synth()
     t0 = time.time()
@@ -1112,8 +1110,7 @@ def phase_ul(out_dir: str, genome_len: int, depth: float, read_len: int,
           f"{time.time() - t0:.1f} s", flush=True)
     pfx = os.path.join(out_dir, "ul")
     torch.cuda.reset_peak_memory_stats()
-    for k in U.STATS:
-        U.STATS[k] = 0
+    trace.reset()
     banded_tb.launches = 0
     banded_forward.launches = 0
     t0 = time.time()

@@ -12,7 +12,7 @@ gathered through the bucket-sharded index (parallel/ec_shard.py) and
 chained on the host.  Then the window alignment, phasing and vote
 aggregation run on the device or the mesh (ec/device_ec.DeviceEC) and
 the host applies the per-column decisions.  ``cfg.profile_dir``
-(``--profile``) writes one profiler trace of each round's device EC.
+(``--profile``) writes one profiler trace of each round.
 There is no size gate and no host-engine branch: ``ec_round`` always
 takes the device branch on the given device.  The one host step
 inside a round is by design: reads whose vote planes show an ambiguity
@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -46,23 +45,28 @@ from hifiasm_tpu_torch.io.readstore import ReadStore, revcomp_codes
 from hifiasm_tpu_torch.ops.chain import ChainParams
 from hifiasm_tpu_torch.overlap.anchors import OverlapRegions
 from hifiasm_tpu_torch.overlap.paf import PafRecords, PafStore
+from hifiasm_tpu_torch.utils import trace
 from hifiasm_tpu_torch.utils.logging import log
 
 LONG_INDEL_WIN_DIFF = 16
 
-# per-stage wall seconds and counters of the EC runs since the last reset:
-# chain_s is the whole front end (anchors to window plans, either path);
-# within the device front end, plan_many_s is the vectorised host window
-# planner and tws_s the device t_ws search (the anchor and chain stages
-# count in index/pos_table_dev.STATS and overlap/chain_device.STATS)
-# (anchors_s: the host or mesh anchor collection inside chain_s, the rest
-# of which is the host chain DP); frontend_rounds and mesh_rounds count
-# the rounds that took the device front end and the mesh gather;
-# mesh_fallback the queries the mesh gather answered from the host table
-STATS = {"index_s": 0.0, "chain_s": 0.0, "anchors_s": 0.0,
-         "plan_many_s": 0.0, "tws_s": 0.0, "device_ec_s": 0.0,
-         "consensus_s": 0.0, "host_dag_reads": 0, "frontend_rounds": 0,
-         "mesh_rounds": 0, "mesh_fallback": 0}
+# per-stage seconds (trace.span) and counters of the EC runs since the
+# last reset: chain_s is the whole front end (anchors to window plans,
+# either path); within the device front end, plan_many_s is the
+# vectorised host window planner and tws_s the device t_ws search (the
+# anchor and chain stages count in index/pos_table_dev.STATS and
+# overlap/chain_device.STATS) (anchors_s: the host or mesh anchor
+# collection inside chain_s, the rest of which is the host chain DP);
+# frontend_rounds and mesh_rounds count the rounds that took the device
+# front end and the mesh gather; mesh_fallback the queries the mesh
+# gather answered from the host table; ec_rounds the rounds run;
+# consensus_reads the reads through the consensus loop, host_dag_reads
+# those of them re-run on the host DAG path and host_dag_s its seconds
+STATS = trace.register("pipeline", {
+    "index_s": 0.0, "chain_s": 0.0, "anchors_s": 0.0, "plan_many_s": 0.0,
+    "tws_s": 0.0, "device_ec_s": 0.0, "consensus_s": 0.0, "host_dag_s": 0.0,
+    "ec_rounds": 0, "consensus_reads": 0, "host_dag_reads": 0,
+    "frontend_rounds": 0, "mesh_rounds": 0, "mesh_fallback": 0})
 
 
 @dataclass
@@ -114,18 +118,18 @@ def _chain_all_reads(store, codes, mzs, pt, cfg, hom_cov, mesh=None):
 
     cp = ChainParams.for_k(cfg.k)
     rids = list(range(store.n_reads))
-    t0 = time.time()
-    if mesh is not None:
-        from hifiasm_tpu_torch.parallel.ec_shard import (
-            MeshAnchorGather, collect_anchors_mesh,
-        )
-        gather = MeshAnchorGather(pt, mesh)
-        ans = collect_anchors_mesh(mzs, gather, rids, store.lens, hom_cov)
-        STATS["mesh_rounds"] += 1
-        STATS["mesh_fallback"] += gather.n_fallback
-    else:
-        ans = collect_anchors_many(mzs, pt, rids, store.lens, hom_cov)
-    STATS["anchors_s"] += time.time() - t0
+    with trace.span("ec.anchors", STATS, "anchors_s"):
+        if mesh is not None:
+            from hifiasm_tpu_torch.parallel.ec_shard import (
+                MeshAnchorGather, collect_anchors_mesh,
+            )
+            gather = MeshAnchorGather(pt, mesh)
+            ans = collect_anchors_mesh(mzs, gather, rids, store.lens,
+                                       hom_cov)
+            STATS["mesh_rounds"] += 1
+            STATS["mesh_fallback"] += gather.n_fallback
+        else:
+            ans = collect_anchors_many(mzs, pt, rids, store.lens, hom_cov)
     reads = [(rid, an, len(codes[rid])) for rid, an in zip(rids, ans)]
     ovs = chain_many(reads, store.lens, cp, max_n_chain=cfg.max_n_chain)
     return [(rid, ov) for (rid, _, _), ov in zip(reads, ovs)]
@@ -156,15 +160,14 @@ def _chain_all_reads_device(store, mzs, pt, cfg, hom_cov, device):
                                           cfg.max_n_chain)
         # window planning: one vectorised host pass over the chunk, then
         # one device search for every window's t_ws
-        t0 = time.time()
-        chunk_plans = plan_windows_many(regs, cfg.ec_window,
-                                        cfg.max_ov_diff_ec)
-        t1 = time.time()
-        STATS["plan_many_s"] += t1 - t0
-        ws = [chunk_plans[rr]["ws"] for rr, _ in regs]
-        ci = [ov.hit_ref[chunk_plans[rr]["ov_idx"]] for rr, ov in regs]
-        t_all = dcc.tws_for_windows(np.concatenate(ci), np.concatenate(ws))
-        STATS["tws_s"] += time.time() - t1
+        with trace.span("ec.plan_many", STATS, "plan_many_s"):
+            chunk_plans = plan_windows_many(regs, cfg.ec_window,
+                                            cfg.max_ov_diff_ec)
+        with trace.span("ec.tws", STATS, "tws_s"):
+            ws = [chunk_plans[rr]["ws"] for rr, _ in regs]
+            ci = [ov.hit_ref[chunk_plans[rr]["ov_idx"]] for rr, ov in regs]
+            t_all = dcc.tws_for_windows(np.concatenate(ci),
+                                        np.concatenate(ws))
         o = 0
         for (rr, ov), w in zip(regs, ws):
             pl = chunk_plans[rr]
@@ -177,18 +180,17 @@ def _chain_all_reads_device(store, mzs, pt, cfg, hom_cov, device):
 
 
 def _index(codes, cfg: HifiasmConfig, ft):
-    t0 = time.time()
-    out = build_position_table(
-        codes, cfg.k, cfg.w, ft=ft, min_hist_cnt=cfg.min_hist_kmer_cnt,
-        keep_max=min(cfg.max_kmer_cnt, 4095))
-    STATS["index_s"] += time.time() - t0
-    return out
+    with trace.span("ec.index", STATS, "index_s"):
+        return build_position_table(
+            codes, cfg.k, cfg.w, ft=ft, min_hist_cnt=cfg.min_hist_kmer_cnt,
+            keep_max=min(cfg.max_kmer_cnt, 4095))
 
 
 def _profiled(cfg: HifiasmConfig, round_idx: int, devices):
-    """--profile: a torch.profiler context over a round's device EC (CPU
+    """--profile: a torch.profiler context over a whole EC round (CPU
     activity, and CUDA on a card) that writes ``ec_r<round>.json``, a
-    Chrome trace, into ``cfg.profile_dir``; a null context without it."""
+    Chrome trace holding every ``ec.*`` span, into ``cfg.profile_dir``;
+    a null context without it."""
     if not cfg.profile_dir:
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile
@@ -219,15 +221,23 @@ def ec_round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
     round's start-of-round frame; the caller clamps them to the corrected
     lengths afterwards (~``flip_paf_rc`` clamping, ecovlp.cpp:3846).
     ``mesh``: None applies ``_active_mesh``; a Mesh is used as given."""
+    dev = resolve_device(device)
+    if mesh is None:
+        mesh = _active_mesh(cfg, dev)
+    devices = list(mesh.devices) if mesh is not None else [dev]
+    with _profiled(cfg, round_idx, devices), trace.span("ec.round"):
+        STATS["ec_rounds"] += 1
+        return _round(store, cfg, ft, round_idx, collect, dev, mesh)
+
+
+def _round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
+           round_idx: int, collect, dev, mesh) -> Tuple[int, int, int]:
+    """The body of ``ec_round`` on a resolved device and mesh."""
     from hifiasm_tpu_torch.ec.consensus import (
         _ambiguity_clusters, consensus_apply,
     )
     from hifiasm_tpu_torch.ec.device_ec import DeviceEC
-    from hifiasm_tpu_torch.ec.window_align import align_overlaps
 
-    dev = resolve_device(device)
-    if mesh is None:
-        mesh = _active_mesh(cfg, dev)
     codes = [store.get_codes(i) for i in range(store.n_reads)]
     # index dump/resume (~write_pt_index/load_pt_index, htab.cpp:1367,
     # saved under --dbg-gfa like the reference's HA_F_VERBOSE_GFA load)
@@ -249,85 +259,92 @@ def ec_round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
     new_seqs = {}
     n_corr = 0
 
-    t0 = time.time()
-    plans = None
-    if mesh is not None:
-        # the mesh gather; the single-device front end is skipped, as in
-        # the JAX package
-        read_ovs = _chain_all_reads(store, codes, mzs, pt, cfg, hom_cov,
-                                    mesh=mesh)
-    elif cfg.device_frontend and loaded is None:
-        read_ovs, plans = _chain_all_reads_device(store, mzs, pt, cfg,
-                                                  hom_cov, dev)
-    else:
-        read_ovs = _chain_all_reads(store, codes, mzs, pt, cfg, hom_cov)
-    STATS["chain_s"] += time.time() - t0
-    t0 = time.time()
-    dec = DeviceEC(store, wl=cfg.ec_window, e_rate=cfg.max_ov_diff_ec,
-                   device=dev, mesh=mesh)
-    with _profiled(cfg, round_idx, dec.devices):
-        outs, cns_in = dec.process(read_ovs, plans=plans)
-    STATS["device_ec_s"] += time.time() - t0
-    t0 = time.time()
-    ov_of = dict(read_ovs)
-    get_target = _TargetCache(store)
-    n_routed = 0
-    for rid, eco in outs.items():
-        if collect is not None:
-            _push_records_stats(
-                collect[0], collect[1], rid, store.lens, eco.ov,
-                (eco.win_tot > 0) & (eco.win_ok == eco.win_tot),
-                eco.err, eco.ts, eco.te, eco.is_match,
-                cfg.max_ov_diff_final)
-        if rid not in cns_in:
-            continue
-        # per-column decisions were made on the device (packed planes;
-        # device_ec.decide_planes == consensus_decide bit for bit)
-        subw, ins_p, ib_, il, amb = cns_in[rid]
-        q = store.get_codes(rid)
-        # votes can't carry the cluster strings: reads whose vote
-        # matrix shows an ambiguity cluster re-run on the host path
-        # (traceback strings -> DAG plurality, ec/consensus.py)
-        if _ambiguity_clusters(amb):
-            ov_full = ov_of[rid]
-            if len(ov_full) and len(ov_full.hit_self) == 0 and \
-                    ov_full.n_hits.max(initial=0) > 0:
-                # hits live on the device: re-derive this read's overlaps
-                # on the host (bit-identical anchors and chain DP)
-                from hifiasm_tpu_torch.overlap.anchors import (
-                    chain_many, collect_anchors_many,
-                )
-                an1 = collect_anchors_many(mzs, pt, [rid], store.lens,
-                                           hom_cov)[0]
-                ov_full = chain_many(
-                    [(rid, an1, len(q))], store.lens,
-                    ChainParams.for_k(cfg.k),
-                    max_n_chain=cfg.max_n_chain)[0]
-            tbs = align_overlaps(q, ov_full, get_target,
-                                 wl=cfg.ec_window,
-                                 e_rate=cfg.max_ov_diff_ec)
-            ph = phase_overlaps(q, ov_full, tbs)
-            cns = windowed_consensus(q, ov_full, tbs, ph)
-            n_routed += 1
+    with trace.span("ec.frontend", STATS, "chain_s"):
+        plans = None
+        if mesh is not None:
+            # the mesh gather; the single-device front end is skipped, as
+            # in the JAX package
+            read_ovs = _chain_all_reads(store, codes, mzs, pt, cfg, hom_cov,
+                                        mesh=mesh)
+        elif cfg.device_frontend and loaded is None:
+            read_ovs, plans = _chain_all_reads_device(store, mzs, pt, cfg,
+                                                      hom_cov, dev)
         else:
-            cns = consensus_apply(q, subw != 15, ins_p,
-                                  subw.astype(np.int64), ib_,
-                                  il.astype(np.int64) + 1)
-        if cns.n_corrected:
-            new_seqs[rid] = cns.seq
-            n_corr += cns.n_corrected
+            read_ovs = _chain_all_reads(store, codes, mzs, pt, cfg, hom_cov)
+    with trace.span("ec.device_ec", STATS, "device_ec_s"):
+        dec = DeviceEC(store, wl=cfg.ec_window, e_rate=cfg.max_ov_diff_ec,
+                       device=dev, mesh=mesh)
+        outs, cns_in = dec.process(read_ovs, plans=plans)
+    with trace.span("ec.consensus", STATS, "consensus_s"):
+        ov_of = dict(read_ovs)
+        get_target = _TargetCache(store)
+        n_reads = n_routed = 0
+        for rid, eco in outs.items():
             if collect is not None:
-                collect[2][rid] = cns.edits
-    STATS["host_dag_reads"] += n_routed
-    log("ec_round",
-        f"routed {n_routed} ambiguous reads to the host DAG path")
-    # barrier: write corrections back only after every read is processed
-    for rid, seq in new_seqs.items():
-        store.set_codes(rid, seq)
-    STATS["consensus_s"] += time.time() - t0
+                _push_records_stats(
+                    collect[0], collect[1], rid, store.lens, eco.ov,
+                    (eco.win_tot > 0) & (eco.win_ok == eco.win_tot),
+                    eco.err, eco.ts, eco.te, eco.is_match,
+                    cfg.max_ov_diff_final)
+            if rid not in cns_in:
+                continue
+            n_reads += 1
+            # per-column decisions were made on the device (packed planes;
+            # device_ec.decide_planes == consensus_decide bit for bit)
+            subw, ins_p, ib_, il, amb = cns_in[rid]
+            q = store.get_codes(rid)
+            # votes can't carry the cluster strings: reads whose vote
+            # matrix shows an ambiguity cluster re-run on the host path
+            if _ambiguity_clusters(amb):
+                cns = _host_dag(rid, q, ov_of[rid], store, mzs, pt, hom_cov,
+                                cfg, get_target)
+                n_routed += 1
+            else:
+                cns = consensus_apply(q, subw != 15, ins_p,
+                                      subw.astype(np.int64), ib_,
+                                      il.astype(np.int64) + 1)
+            if cns.n_corrected:
+                new_seqs[rid] = cns.seq
+                n_corr += cns.n_corrected
+                if collect is not None:
+                    collect[2][rid] = cns.edits
+        STATS["consensus_reads"] += n_reads
+        STATS["host_dag_reads"] += n_routed
+        log("ec_round",
+            f"routed {n_routed} ambiguous reads to the host DAG path")
+        # barrier: write corrections back only after every read is
+        # processed
+        for rid, seq in new_seqs.items():
+            store.set_codes(rid, seq)
     log("ec_round", f"round {round_idx}: corrected {n_corr} bases in "
         f"{len(new_seqs)} reads")
     return hom_cov, peak_het, n_corr
+
+
+def _host_dag(rid: int, q: np.ndarray, ov: OverlapRegions,
+              store: ReadStore, mzs, pt, hom_cov: int, cfg: HifiasmConfig,
+              get_target):
+    """The host DAG path of one read (traceback strings -> DAG
+    plurality, ec/consensus.py), timed into ``host_dag_s``."""
+    from hifiasm_tpu_torch.ec.window_align import align_overlaps
+
+    with trace.span(None, STATS, "host_dag_s"):
+        if len(ov) and len(ov.hit_self) == 0 and \
+                ov.n_hits.max(initial=0) > 0:
+            # hits live on the device: re-derive this read's overlaps on
+            # the host (bit-identical anchors and chain DP)
+            from hifiasm_tpu_torch.overlap.anchors import (
+                chain_many, collect_anchors_many,
+            )
+            an1 = collect_anchors_many(mzs, pt, [rid], store.lens,
+                                       hom_cov)[0]
+            ov = chain_many([(rid, an1, len(q))], store.lens,
+                            ChainParams.for_k(cfg.k),
+                            max_n_chain=cfg.max_n_chain)[0]
+        tbs = align_overlaps(q, ov, get_target, wl=cfg.ec_window,
+                             e_rate=cfg.max_ov_diff_ec)
+        ph = phase_overlaps(q, ov, tbs)
+        return windowed_consensus(q, ov, tbs, ph)
 
 
 def _push_records_stats(paf: PafStore, rev_paf: PafStore, rid: int,

@@ -25,7 +25,6 @@ package's "wide" branch included).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -38,14 +37,17 @@ from hifiasm_tpu_torch.index.count import (
 )
 from hifiasm_tpu_torch.index.pos_table import PositionTable
 from hifiasm_tpu_torch.overlap.anchors import HA_KMER_GOOD_RATIO, Anchors
+from hifiasm_tpu_torch.utils import trace
 from hifiasm_tpu_torch.utils.logging import log
 
 _FLIP = np.uint64(1 << 63)
 
-# counters of the runs since the caller last reset them: seconds of the
-# table upload and of the anchor stages (lookup + expand + sort + groups,
-# synced at the group fetch), anchors kept and chunks gathered
-STATS = {"upload_s": 0.0, "anchors_s": 0.0, "anchors": 0, "chunks": 0}
+# counters of the runs since the caller last reset them: seconds
+# (trace.span) of the table upload and of the anchor stages (lookup +
+# expand + sort + groups, synced at the group fetch), anchors kept and
+# chunks gathered
+STATS = trace.register("pos_table_dev", {
+    "upload_s": 0.0, "anchors_s": 0.0, "anchors": 0, "chunks": 0})
 
 
 def flip_u64(h: np.ndarray) -> np.ndarray:
@@ -94,22 +96,20 @@ class DevicePositionTable:
 def device_table_from_host(pt, device) -> DevicePositionTable:
     """Upload a host-built PositionTable: the front end builds on the host
     (native sketch + numpy lexsort) and serves from device memory."""
-    t0 = time.time()
-
     def up(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=device, dtype=dtype)
 
-    tbl = DevicePositionTable(
-        keys=up(flip_u64(pt.hashes), torch.int64),
-        start=up(pt.start, torch.int64), count=up(pt.count, torch.int64),
-        rid=up(pt.rid, torch.int64), pos=up(pt.pos, torch.int64),
-        rev=up(pt.rev, torch.uint8), span=up(pt.span, torch.int64))
-    if tbl.keys.is_cuda:
-        torch.cuda.synchronize(tbl.keys.device)
-    STATS["upload_s"] += time.time() - t0
+    with trace.span("ec.upload", STATS, "upload_s") as sp:
+        tbl = DevicePositionTable(
+            keys=up(flip_u64(pt.hashes), torch.int64),
+            start=up(pt.start, torch.int64), count=up(pt.count, torch.int64),
+            rid=up(pt.rid, torch.int64), pos=up(pt.pos, torch.int64),
+            rev=up(pt.rev, torch.uint8), span=up(pt.span, torch.int64))
+        if tbl.keys.is_cuda:
+            torch.cuda.synchronize(tbl.keys.device)
     log("device_table", f"{tbl.n_distinct} keys, {tbl.tot_pos} postings "
-        f"resident in {time.time() - t0:.2f}s")
+        f"resident in {sp.s:.2f}s")
     return tbl
 
 
@@ -258,9 +258,9 @@ def group_detect(a_read, a_tid, a_rev):
 def _anchor_chunks(mzs, table: DevicePositionTable, rids, tlens, hom_cov,
                    chunk_mz: int):
     """Chunks of ``rids`` split on read boundaries (each at least one read
-    and about ``chunk_mz`` minimizers); yields (reads, cols, t0): the
-    sorted anchor columns of the chunk on the table's device (None when
-    it has none) and the host clock at the chunk's start."""
+    and about ``chunk_mz`` minimizers); yields (reads, cols): the sorted
+    anchor columns of the chunk on the table's device (None when it has
+    none)."""
     dev = table.keys.device
     wlut = torch.from_numpy(weight_lut(hom_cov)).to(dev)
     lens = torch.from_numpy(np.asarray(tlens, np.int64)).to(dev)
@@ -272,7 +272,6 @@ def _anchor_chunks(mzs, table: DevicePositionTable, rids, tlens, hom_cov,
             c1 += 1
         sub = rids[c0:c1]
         c0 = c1
-        t0 = time.time()
         ms = [mzs[rr] for rr in sub]
 
         def cat(f, dtype):
@@ -288,12 +287,12 @@ def _anchor_chunks(mzs, table: DevicePositionTable, rids, tlens, hom_cov,
         q_span = cat(lambda mz: mz.span, np.int64)
         slot, _, cnt = lookup(q_keys, table)
         if int(cnt.sum()) == 0:
-            yield sub, None, t0
+            yield sub, None
             continue
         yield sub, dict(zip(
             ("read", "tid", "rev", "qpos", "toff", "span", "w"),
             expand_fill(slot, cnt, q_read, q_pos, q_rev, q_span, table,
-                        lens, wlut))), t0
+                        lens, wlut)))
 
 
 def collect_anchor_groups_device(mzs, table: DevicePositionTable, rids,
@@ -306,17 +305,22 @@ def collect_anchor_groups_device(mzs, table: DevicePositionTable, rids,
     on the device (read, tid, qpos, toff, span, w as int64, rev uint8),
     ``meta`` the host arrays (reads, n_keep, g_start, g_end, g_read,
     g_tid, g_rev as int64).  Chunks split on read boundaries, so groups
-    never straddle chunks; cols is None for a chunk without anchors."""
-    for sub, cols, t0 in _anchor_chunks(mzs, table, rids, tlens, hom_cov,
-                                        chunk_mz):
+    never straddle chunks; cols is None for a chunk without anchors.
+    A chunk's anchor stages, from its lookup to its group fetch, are one
+    ``ec.anchors`` span."""
+    chunks = _anchor_chunks(mzs, table, rids, tlens, hom_cov, chunk_mz)
+    while True:
+        with trace.span("ec.anchors", STATS, "anchors_s"):
+            sub, cols = next(chunks, (None, None))
+            if cols is not None:
+                gs, g_read, g_tid, g_rev = group_detect(
+                    cols["read"], cols["tid"], cols["rev"])
+        if sub is None:
+            return
         if cols is None:
-            STATS["anchors_s"] += time.time() - t0
             yield None, dict(reads=sub, n_keep=0)
             continue
-        gs, g_read, g_tid, g_rev = group_detect(cols["read"], cols["tid"],
-                                                cols["rev"])
         nk = int(cols["read"].numel())
-        STATS["anchors_s"] += time.time() - t0
         STATS["anchors"] += nk
         STATS["chunks"] += 1
         meta = dict(reads=sub, n_keep=nk, g_start=gs,
@@ -344,8 +348,8 @@ def collect_anchors_device(mzs, table: DevicePositionTable, rids,
     the assert nor a second branch is needed here."""
     out = [_empty_anchors() for _ in rids]
     pos_of = {rr: i for i, rr in enumerate(rids)}
-    for _, cols, _ in _anchor_chunks(mzs, table, rids, tlens, hom_cov,
-                                     chunk_mz):
+    for _, cols in _anchor_chunks(mzs, table, rids, tlens, hom_cov,
+                                  chunk_mz):
         if cols is None or cols["read"].numel() == 0:
             continue
         read, tid, rev, qpos, toff, span, w = (

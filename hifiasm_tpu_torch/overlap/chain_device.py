@@ -23,7 +23,6 @@ rows of the sorted anchor columns, so nothing is copied for them.
 
 from __future__ import annotations
 
-import time
 from typing import List, Tuple
 
 import numpy as np
@@ -32,16 +31,19 @@ import torch
 from hifiasm_tpu_torch.ops.chain import ChainParams, chain_dp_group
 from hifiasm_tpu_torch.ops.chain_batch import chain_quick_batch
 from hifiasm_tpu_torch.overlap.anchors import OverlapRegions, _finish_regions
+from hifiasm_tpu_torch.utils import trace
 
 _BUCKETS = (32, 128, 512, 2048)
 _SLAB_CELLS = 1 << 22        # [groups, Nb] cells per quick-pass slab
 
-# counters of the runs since the caller last reset them: seconds of the
-# device quick pass (synced at its fetch) and of the host DP, and groups
-# by route: quick on the device, host DP because the quick pass failed,
-# host DP because the group is larger than the top bucket
-STATS = {"quick_s": 0.0, "host_dp_s": 0.0, "quick_groups": 0,
-         "host_nonquick_groups": 0, "host_oversize_groups": 0}
+# counters of the runs since the caller last reset them: seconds
+# (trace.span) of the device quick pass (synced at its fetch) and of the
+# host DP, and groups by route: quick on the device, host DP because the
+# quick pass failed, host DP because the group is larger than the top
+# bucket
+STATS = trace.register("chain_device", {
+    "quick_s": 0.0, "host_dp_s": 0.0, "quick_groups": 0,
+    "host_nonquick_groups": 0, "host_oversize_groups": 0})
 
 
 def _ranges(starts: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
@@ -96,6 +98,45 @@ def _host_chains(cols, meta, gids: np.ndarray, rlens, tlens,
     return out
 
 
+def _quick_pass(cols, meta, rlens: np.ndarray, tlens: np.ndarray,
+                params: ChainParams):
+    """The quick chain pass of every group of a chunk on the device, by
+    size bucket.  Returns, per group, whether it passed, its score and
+    the endpoints (qpos and toff of its first and last anchors) on the
+    host, and the groups' sizes and ends on the device."""
+    g_start, g_end = meta["g_start"], meta["g_end"]
+    sizes = g_end - g_start
+    ng = len(sizes)
+    dev = cols["qpos"].device
+    gs_d = torch.from_numpy(g_start).to(dev)
+    ge_d = torch.from_numpy(g_end).to(dev)
+    sz_d = ge_d - gs_d
+    xl_d = torch.from_numpy(rlens[meta["g_read"]].astype(np.int64)).to(dev)
+    yl_d = torch.from_numpy(tlens[meta["g_tid"]].astype(np.int64)).to(dev)
+    quick_d = torch.zeros(ng, dtype=torch.bool, device=dev)
+    score_d = torch.zeros(ng, dtype=torch.int32, device=dev)
+    lo = 0
+    for Nb in _BUCKETS:
+        gids = np.flatnonzero((sizes > lo) & (sizes <= Nb))
+        lo = Nb
+        slab = max(1, _SLAB_CELLS // Nb)
+        for r0 in range(0, len(gids), slab):
+            gi = torch.from_numpy(gids[r0:r0 + slab]).to(dev)
+            so, to, sp, w = gather_groups(cols, gs_d, gi, sz_d[gi], Nb)
+            fq, _, quick = chain_quick_batch(
+                so, to, sp, w, sz_d[gi], xl_d[gi], yl_d[gi],
+                quick_check=params.quick_check, pg_q16=params.pg_q16,
+                pskip_q16=params.pskip_q16, bw_q16=params.bw_q16,
+                invbw_q4=params.invbw_q4)
+            quick_d[gi] = quick
+            score_d[gi] = fq[torch.arange(gi.numel(), device=dev),
+                             sz_d[gi] - 1]
+    ends = (cols["qpos"][gs_d], cols["qpos"][ge_d - 1],
+            cols["toff"][gs_d], cols["toff"][ge_d - 1])
+    return (tuple(t.cpu().numpy() for t in (quick_d, score_d) + ends),
+            sz_d, ge_d)
+
+
 class DeviceChunkChains:
     """Chained anchors of one collect chunk; the anchors stay on the
     device.  Per chain (group order, then copy order): ``g_of``,
@@ -113,39 +154,10 @@ class DeviceChunkChains:
         self._host_hits: List[Tuple[np.ndarray, np.ndarray]] = []
         if cols is None or meta["n_keep"] == 0:
             return
-        t0 = time.time()
-        g_start, g_end = meta["g_start"], meta["g_end"]
-        sizes = g_end - g_start
-        ng = len(sizes)
-        dev = cols["qpos"].device
-        gs_d = torch.from_numpy(g_start).to(dev)
-        ge_d = torch.from_numpy(g_end).to(dev)
-        sz_d = ge_d - gs_d
-        xl_d = torch.from_numpy(rlens[meta["g_read"]].astype(np.int64)).to(dev)
-        yl_d = torch.from_numpy(tlens[meta["g_tid"]].astype(np.int64)).to(dev)
-        quick_d = torch.zeros(ng, dtype=torch.bool, device=dev)
-        score_d = torch.zeros(ng, dtype=torch.int32, device=dev)
-        lo = 0
-        for Nb in _BUCKETS:
-            gids = np.flatnonzero((sizes > lo) & (sizes <= Nb))
-            lo = Nb
-            slab = max(1, _SLAB_CELLS // Nb)
-            for r0 in range(0, len(gids), slab):
-                gi = torch.from_numpy(gids[r0:r0 + slab]).to(dev)
-                so, to, sp, w = gather_groups(cols, gs_d, gi, sz_d[gi], Nb)
-                fq, _, quick = chain_quick_batch(
-                    so, to, sp, w, sz_d[gi], xl_d[gi], yl_d[gi],
-                    quick_check=params.quick_check, pg_q16=params.pg_q16,
-                    pskip_q16=params.pskip_q16, bw_q16=params.bw_q16,
-                    invbw_q4=params.invbw_q4)
-                quick_d[gi] = quick
-                score_d[gi] = fq[torch.arange(gi.numel(), device=dev),
-                                 sz_d[gi] - 1]
-        ends = (cols["qpos"][gs_d], cols["qpos"][ge_d - 1],
-                cols["toff"][gs_d], cols["toff"][ge_d - 1])
-        quick, score, xs, xe, ts, te = (
-            t.cpu().numpy() for t in (quick_d, score_d) + ends)
-        STATS["quick_s"] += time.time() - t0
+        sizes = meta["g_end"] - meta["g_start"]
+        with trace.span("ec.quick", STATS, "quick_s"):
+            (quick, score, xs, xe, ts, te), sz_d, ge_d = _quick_pass(
+                cols, meta, rlens, tlens, params)
         oversize = sizes > _BUCKETS[-1]
         host = np.flatnonzero(~quick)
         STATS["quick_groups"] += int(quick.sum())
@@ -156,19 +168,18 @@ class DeviceChunkChains:
         rows = [(q, score[q].astype(np.int64), sizes[q], xs[q], xe[q],
                  ts[q], te[q], np.full(len(q), -1, np.int64))]
         if len(host):
-            t1 = time.time()
-            for g, (so_h, to_h, chains) in zip(
-                    host, _host_chains(cols, meta, host, rlens, tlens,
-                                       params)):
-                for sck, idx in chains:
-                    rows.append((
-                        np.array([g]), np.array([sck]),
-                        np.array([len(idx)]), so_h[idx[:1]], so_h[idx[-1:]],
-                        to_h[idx[:1]], to_h[idx[-1:]],
-                        np.array([len(self._host_hits)])))
-                    self._host_hits.append((so_h[idx].astype(np.int64),
-                                            to_h[idx].astype(np.int64)))
-            STATS["host_dp_s"] += time.time() - t1
+            with trace.span("ec.host_dp", STATS, "host_dp_s"):
+                for g, (so_h, to_h, chains) in zip(
+                        host, _host_chains(cols, meta, host, rlens, tlens,
+                                           params)):
+                    for sck, idx in chains:
+                        rows.append((
+                            np.array([g]), np.array([sck]),
+                            np.array([len(idx)]), so_h[idx[:1]],
+                            so_h[idx[-1:]], to_h[idx[:1]], to_h[idx[-1:]],
+                            np.array([len(self._host_hits)])))
+                        self._host_hits.append((so_h[idx].astype(np.int64),
+                                                to_h[idx].astype(np.int64)))
         # groups in ascending order, chains in copy order: the order in
         # which the host chain_many emits regions
         c = [np.concatenate([r[i] for r in rows]).astype(np.int64)
@@ -178,7 +189,8 @@ class DeviceChunkChains:
          self.te, self.host_ref) = (a[o] for a in c)
         # search key of every anchor: (group, qpos), ascending over the
         # sorted columns
-        gid = torch.repeat_interleave(torch.arange(ng, device=dev), sz_d)
+        gid = torch.repeat_interleave(
+            torch.arange(len(sizes), device=sz_d.device), sz_d)
         self._key = (gid << 32) | cols["qpos"]
         self._g_end = ge_d
 

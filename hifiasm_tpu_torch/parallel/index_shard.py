@@ -37,13 +37,15 @@ from hifiasm_tpu_torch.index.count import YAK_MAX_COUNT, YAK_N_COUNTS
 from hifiasm_tpu_torch.index.pos_table import PositionTable
 from hifiasm_tpu_torch.overlap.anchors import _expand_ranges
 from hifiasm_tpu_torch.parallel.mesh import Mesh
+from hifiasm_tpu_torch.utils import trace
 
 _SIGN = -(1 << 63)            # key = bits ^ _SIGN: signed order == unsigned
 _U32 = 0xFFFFFFFF
 
 # lane traffic of the routed calls since the caller last reset them:
 # calls, queries (or postings) routed, and those past a lane's capacity
-STATS = {"calls": 0, "routed": 0, "overflow": 0}
+STATS = trace.register("index_shard", {"calls": 0, "routed": 0,
+                                       "overflow": 0})
 
 
 def hash_bits(h: np.ndarray) -> torch.Tensor:

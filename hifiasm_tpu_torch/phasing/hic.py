@@ -21,7 +21,6 @@ assembly's device: the kernel for ``cuda``, its plain version for
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -29,15 +28,18 @@ import numpy as np
 
 from hifiasm_tpu_torch.device import resolve_device
 from hifiasm_tpu_torch.trio import yak_hash64_masked, sliding_all
+from hifiasm_tpu_torch.utils import trace
 from hifiasm_tpu_torch.utils.logging import log
 
 HIC_K = 31
 
-# wall seconds and counters of map_hic_pairs_pos_batch since the last
-# reset: vote_s is the k-mer vote, pack_s the host packing of the rescue's
-# X and Y rows, k2_s the rescue's K2 calls (upload, kernel, fetch)
-STATS = {"vote_s": 0.0, "pack_s": 0.0, "k2_s": 0.0, "pairs": 0,
-         "hits": 0, "rescue_rows": 0, "rescued": 0}
+# seconds (trace.span, timed per batch with no range) and counters of
+# map_hic_pairs_pos_batch since the last reset: vote_s is the k-mer vote,
+# pack_s the host packing of the rescue's X and Y rows, k2_s the rescue's
+# K2 calls (upload, kernel, fetch)
+STATS = trace.register("hic", {
+    "vote_s": 0.0, "pack_s": 0.0, "k2_s": 0.0, "pairs": 0, "hits": 0,
+    "rescue_rows": 0, "rescued": 0})
 
 
 def _seq_kmers(codes: np.ndarray, k: int,
@@ -754,13 +756,11 @@ def map_hic_pairs_pos_batch(index: UnitigIndex, pairs,
         if not len(rr):
             return big
         e = rescue_band
-        t0 = time.time()
-        X, xl, Y, yl, rl = pack_rescue_rows(mat, rr, cand_col, cands,
-                                            utg_seqs, e)
-        t1 = time.time()
-        res_err = rescue_align(X, xl, Y, yl, e, dev)
-        STATS["pack_s"] += t1 - t0
-        STATS["k2_s"] += time.time() - t1
+        with trace.span(None, STATS, "pack_s"):
+            X, xl, Y, yl, rl = pack_rescue_rows(mat, rr, cand_col, cands,
+                                                utg_seqs, e)
+        with trace.span(None, STATS, "k2_s"):
+            res_err = rescue_align(X, xl, Y, yl, e, dev)
         STATS["rescue_rows"] += len(rr)
         err = big.copy()
         lim = np.ceil(rl * rescue_err).astype(np.int64)
@@ -778,9 +778,8 @@ def map_hic_pairs_pos_batch(index: UnitigIndex, pairs,
         for i, (r1, r2) in enumerate(buf):
             mat[2 * i, :len(r1)] = r1
             mat[2 * i + 1, :len(r2)] = r2
-        t0 = time.time()
-        uid, pos, cands = _vote_place_batch(index, mat, k)
-        STATS["vote_s"] += time.time() - t0
+        with trace.span(None, STATS, "vote_s"):
+            uid, pos, cands = _vote_place_batch(index, mat, k)
         if utg_seqs is not None:
             miss = np.flatnonzero((uid < 0) & (cands[:, 0, 0] >= 0))
             if len(miss):

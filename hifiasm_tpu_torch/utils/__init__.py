@@ -1,1 +1,1 @@
-from hifiasm_tpu_torch.utils.logging import log, phase_timer  # noqa: F401
+from hifiasm_tpu_torch.utils.logging import log  # noqa: F401

@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import contextlib
 import os
 import resource
 import sys
@@ -22,10 +21,3 @@ def log(fn: str, msg: str = "") -> None:
     util = cpu / wall if wall > 0 else 0.0
     sys.stderr.write(f"[M::{fn}::{wall:.3f}*{util:.2f}@{_peak_rss_gb():.3f}GB] {msg}\n")
     sys.stderr.flush()
-
-
-@contextlib.contextmanager
-def phase_timer(name: str):
-    t0 = time.time()
-    yield
-    log(name, f"took {time.time() - t0:.3f}s")

@@ -54,14 +54,13 @@ def main(argv) -> int:
     import hifiasm_tpu_torch.ec.pipeline as P
     from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.utils import trace
 
     store = smoke._store(4_000_000, smoke.MAIN_DEPTH, 15000, 0.003, seed=11)
     prof = os.path.join(out, "traces")
     cfg = HifiasmConfig(output_prefix=os.path.join(out, "asm"),
                         ignore_bin=True, mesh_devices=1, profile_dir=prof)
-    for st in (D.STATS, P.STATS):
-        for k in st:
-            st[k] = 0
+    trace.reset()
     t0 = time.time()
     res = assemble(store, cfg, device="cuda")
     torch.cuda.synchronize()

@@ -11,12 +11,14 @@ Per trace it prints one JSON line:
   copy and set intervals, and 1 - busy / window;
 - ``gaps``: the largest stretches with nothing on the device (start
   offset into the window and length, us);
-- ``stages``: per ``ec.*`` range that DeviceEC marks with
-  ``record_function`` (ec.L1, ec.L1_retry, ec.L2, ec.het, ec.L3, ec.L4,
-  ec.L5): the range's host wall time, the kernels launched inside it
-  (matched through the launch's correlation id), their summed device
-  time, and the host time those kernels do not cover (wall - device),
-  an upper bound on what launch and host overhead cost the stage;
+- ``stages``: per ``ec.*`` span of the round (``utils/trace.py``:
+  ec.round, ec.index, ec.frontend and its parts, ec.device_ec, DeviceEC's
+  ec.L1 ... ec.L5, ec.consensus): the range's host wall time, the
+  kernels launched inside it (matched through the launch's correlation
+  id, each to the innermost range open at its launch), their summed
+  device time, and the host time those kernels do not cover (wall -
+  device), an upper bound on what launch and host overhead cost the
+  stage;
 - ``vote``: the L2-L5 ranges together (ec.L2, ec.het, ec.L3, ec.L4,
   ec.L5: ``vote_s``): their host wall time, the device's busy time
   inside that wall and the share it is busy; 1 - busy share is the part
@@ -92,12 +94,17 @@ def analyse(path: str, n_gaps: int = 5, n_top: int = 8) -> dict:
         ln = launch.get(k.get("args", {}).get("correlation"))
         if ln is None:
             continue
+        # the innermost: the latest start, the shortest of equal starts
+        inner = None
         for r in ranges:
             if r["tid"] == ln["tid"] and \
-                    r["ts"] <= ln["ts"] <= r["ts"] + r["dur"]:
-                stages[r["name"]]["kernels"] += 1
-                stages[r["name"]]["device_us"] += k["dur"]
-                break
+                    r["ts"] <= ln["ts"] <= r["ts"] + r["dur"] and \
+                    (inner is None or (r["ts"], -r["dur"]) >
+                     (inner["ts"], -inner["dur"])):
+                inner = r
+        if inner is not None:
+            stages[inner["name"]]["kernels"] += 1
+            stages[inner["name"]]["device_us"] += k["dur"]
     for st in stages.values():
         st["uncovered_us"] = st["wall_us"] - st["device_us"]
     vote_wall = _merge([(r["ts"], r["ts"] + r["dur"]) for r in ranges

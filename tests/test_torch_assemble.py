@@ -22,6 +22,7 @@ from hifiasm_tpu.io.readstore import ReadStore as JStore
 from hifiasm_tpu_torch.assemble import assemble
 from hifiasm_tpu_torch.convert import config_from_reference
 from hifiasm_tpu_torch.io.readstore import ReadStore
+from hifiasm_tpu_torch.utils import trace
 from tests.synth import inject_errors, make_genome, sample_reads
 
 OUTPUTS = ("bp.p_ctg.gfa", "bp.r_utg.gfa", "bp.p_utg.gfa", "p_ctg.fa")
@@ -190,8 +191,7 @@ def test_unported_branches_raise(runs):
             if pkg == "jax":
                 jax_held_memo(JStore.from_arrays(["x"], stub), _jcfg(p, **kw))
             else:
-                for k in ul_mod.STATS:
-                    ul_mod.STATS[k] = 0
+                trace.reset()
                 res = assemble(ReadStore.from_arrays(["x"], stub),
                                _port_cfg(p, **kw), device="cpu")
                 assert res.store.n_reads == len(names)

@@ -34,6 +34,7 @@ from hifiasm_tpu.io.readstore import ReadStore as JStore
 from hifiasm_tpu_torch.assemble import assemble
 from hifiasm_tpu_torch.convert import config_from_reference
 from hifiasm_tpu_torch.io.readstore import ReadStore
+from hifiasm_tpu_torch.utils import trace
 from tests.synth import inject_errors, make_genome, sample_reads
 
 NT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -152,8 +153,7 @@ def runs(data):
     d, names, reads, hic, _ = data
     jax_assemble(JStore.from_arrays(names, reads),
                  _jcfg(str(d / "jax"), **hic))
-    for k in H.STATS:
-        H.STATS[k] = 0
+    trace.reset()
     res = assemble(ReadStore.from_arrays(names, reads),
                    _port_cfg(str(d / "port"), **hic), device="cpu")
     return res, dict(H.STATS)
@@ -268,8 +268,7 @@ def mapped():
     pairs.append((pairs[1][0][:40], pairs[1][1]))
     jh = JH.map_hic_pairs_pos_batch(JH.UnitigIndex.build(useqs), pairs,
                                     utg_seqs=useqs, batch=97)
-    for k in H.STATS:
-        H.STATS[k] = 0
+    trace.reset()
     th = H.map_hic_pairs_pos_batch(H.UnitigIndex.build(useqs), pairs,
                                    utg_seqs=useqs, batch=97, device="cpu")
     return useqs, jh, th, dict(H.STATS)

@@ -51,6 +51,7 @@ from hifiasm_tpu_torch.parallel.mesh import Mesh, make_mesh
 from hifiasm_tpu_torch.parallel.sharded_align import (
     make_sharded_align_step, make_sharded_chain_step,
 )
+from hifiasm_tpu_torch.utils import trace
 from tests import synth
 from tests.synth import make_genome, sample_reads
 from tests.test_chain_jax import _mk_group
@@ -428,7 +429,7 @@ def test_mesh_assembly_end_to_end(tmp_path, monkeypatch):
         output_prefix=str(tmp_path / "jax"), n_rounds_ec=1, ignore_bin=True,
         align_engine="jax", mesh_devices=0))
     tcalls = _capture(monkeypatch, TD, "route_windows", False)
-    TP.STATS["mesh_rounds"] = 0
+    trace.reset()
     assemble(ReadStore.from_arrays(names, reads), HifiasmConfig(
         output_prefix=str(tmp_path / "mesh"), n_rounds_ec=1,
         ignore_bin=True), device="cpu", mesh=CPU8)
@@ -458,7 +459,7 @@ def test_device_ec_on_mesh_matches_jax(nd):
     store, jstore, read_ovs, cfg = _ec_inputs()
     ref = J.DeviceEC(jstore, wl=cfg.ec_window,
                      e_rate=cfg.max_ov_diff_ec).process(read_ovs)
-    TD.SHARD_STATS.clear()
+    trace.reset()
     dev = TD.DeviceEC(store, wl=cfg.ec_window, e_rate=cfg.max_ov_diff_ec,
                       mesh=Mesh(["cpu"] * nd), chunk=1000)
     assert len({id(b) for b in dev.banks}) == 1     # one copy per device
@@ -501,8 +502,8 @@ def test_profile_writes_one_trace_per_round(tmp_path):
 
 def test_trace_idle_reads_a_trace(tmp_path):
     """scripts/trace_idle.py on a small hand-made trace: busy time is the
-    union of device intervals, kernels count toward the ec.* range
-    that launched them."""
+    union of device intervals, kernels count toward the innermost ec.*
+    range open at their launch (here ec.L2 inside ec.round)."""
     import importlib.util
     import json
 
@@ -517,6 +518,7 @@ def test_trace_idle_reads_a_trace(tmp_path):
                 "ts": ts, "dur": dur, "args": args}
 
     trace = {"traceEvents": [
+        ev("user_annotation", "ec.round", 0, 200),
         ev("user_annotation", "ec.L2", 0, 100),
         ev("cuda_runtime", "cudaLaunchKernel", 10, 2, correlation=1),
         ev("cuda_runtime", "cudaLaunchKernel", 20, 2, correlation=2),
@@ -533,6 +535,7 @@ def test_trace_idle_reads_a_trace(tmp_path):
     assert rep["gaps"][0] == {"at_us": 80, "us": 70}
     st = rep["stages"]["ec.L2"]
     assert (st["kernels"], st["device_us"], st["wall_us"]) == (2, 70, 100)
+    assert rep["stages"]["ec.round"]["kernels"] == 0
     assert rep["vote"]["device_busy_us"] == 50    # [30, 80) in [0, 100)
     assert rep["vote"]["busy_share"] == pytest.approx(0.5)
 

@@ -27,15 +27,11 @@ from hifiasm_tpu_torch.assemble import assemble
 from hifiasm_tpu_torch.graph.sg import CoverageCut
 from hifiasm_tpu_torch.graph.unitig import Unitig, UnitigGraph
 from hifiasm_tpu_torch.io.readstore import ReadStore
+from hifiasm_tpu_torch.utils import trace
 from tests.synth import inject_errors, make_genome, sample_reads
 from tests.test_torch_hic import _assert_same, _jcfg, _port_cfg, jax_assemble
 
 NT = np.frombuffer(b"ACGTN", dtype=np.uint8)
-
-
-def _reset_stats():
-    for k in U.STATS:
-        U.STATS[k] = 0
 
 
 def _graphs(n_utg, arcs):
@@ -165,7 +161,7 @@ def test_ul_align_paths_match_jax(name):
     jg = tg = None
     if graph is not None:
         jg, tg = _graphs(*graph)
-    _reset_stats()
+    trace.reset()
     jp = J.ul_align(utgs, uls, ug=jg, **kw)
     tp = U.ul_align(utgs, uls, ug=tg, device="cpu", **kw)
     assert [p.blocks for p in tp] == [p.blocks for p in jp]
@@ -214,7 +210,7 @@ def test_packed_screen_split_matches_per_chain(monkeypatch):
 
     monkeypatch.setattr(U, "graph_chain_refine", refine)
     monkeypatch.setattr(U, "ul_band_err", band_err)
-    _reset_stats()
+    trace.reset()
     U.ul_align(utgs, uls, ug=tg, device="cpu")
     assert U.STATS["screen_launches"] == 1
     assert calls[0] == U.STATS["screen_rows"]
@@ -564,7 +560,7 @@ def ul_runs(tmp_path_factory):
         names, reads, kw = _scenario(name, d)
         jax_assemble(JStore.from_arrays(names, reads),
                      _jcfg(str(d / f"{name}_jax"), **kw))
-        _reset_stats()
+        trace.reset()
         res = assemble(ReadStore.from_arrays(names, reads),
                        _port_cfg(str(d / f"{name}_port"), **kw),
                        device="cpu")
@@ -598,7 +594,7 @@ def test_resume_from_jax_ul_cache(ul_runs):
     for a, b in zip(checkpoint_paths(src), checkpoint_paths(dst)):
         shutil.copyfile(a, b)
     shutil.copyfile(f"{src}.ul.aln.bin", f"{dst}.ul.aln.bin")
-    _reset_stats()
+    trace.reset()
     res = assemble(ReadStore.from_arrays(["x"], [np.zeros(10, np.uint8)]),
                    _port_cfg(dst, ignore_bin=False, **kw), device="cpu")
     assert res.store.n_reads == len(names)
