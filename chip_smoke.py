@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (hifiasm_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --kernels    # phases 1-3b: build, K1 and K2
+    python3 chip_smoke.py --kernels    # phases 1-3c: build, K1, K2 and
+                                       # the vote kernel
     python3 chip_smoke.py --mesh       # phases 1, 2, 4 and 9-9d: the
                                        # multi-device path beside phase 4
     python3 chip_smoke.py --index      # phases 1, 2, 10 and 10b: the
@@ -24,12 +25,18 @@ Phases, in order; any failure raises and the script exits nonzero:
 3b. K2 (csrc/banded_fwd.cu) on the same windows through its entry point
    ``banded_forward``: bit-equal to its plain version and to K1's err
    and y_end; times of both, and its occupancy;
+3c. the EC vote kernel (csrc/vote_scatter.cu) in its L4 form on K1's
+   tracebacks of those windows, placed on 128 read rows of 16,384
+   columns: accumulators and dropped count bit-equal to its plain
+   version and to the spare-slot ``index_add_`` route the CPU runs;
+   the kernel's time beside its bytes bound, the plain version's and
+   that of ``index_add_`` (``library_ms``), and its occupancy;
 4. the main path end to end on the card: a synthetic 4 Mb genome, HiFi
    reads of 15 kb at 30x depth with 0.3% error (~120 Mb), the default
    3 EC rounds through ``assemble(..., device="cuda")``, whose EC rounds
    must take the device front end (anchors, quick chaining and t_ws on
-   the card); the kernel launch counts are zeroed just before and read
-   just after;
+   the card) and whose votes must launch the vote kernel in L2 and L4;
+   the kernel launch counts are zeroed just before and read just after;
 5. card against plain end to end: a small store assembled with
    device="cuda" (device front end on) and with device="cpu" and
    ``device_frontend=False`` gives byte-identical outputs;
@@ -416,6 +423,139 @@ def phase_k2(prob, k1_out, e: int = 31):
     return rec
 
 
+# the vote kernel's stand-in read rows (phase 3c): K1's windows tile each
+# row at multiples of the window width, about 24 deep, as a 30x batch
+VOTE_ROWS = 128
+VOTE_L = 16384
+
+
+def vote_inputs(rng, k1_out, prob):
+    """Phase 3c's L4 inputs on the card: K1's (tb, ic, ib) planes of the
+    production windows, each window at a random row and a random multiple
+    of XL on it, kept where K1 aligned it and, nine in ten, cis."""
+    import torch
+
+    x, xlen, _, _ = prob
+    B, XL = x.shape
+    dev = k1_out[3].device
+    qlen_row = rng.integers(VOTE_L * 3 // 4, VOTE_L + 1, VOTE_ROWS)
+    q_row = rng.integers(0, VOTE_ROWS, B)
+    q_ws = rng.integers(0, VOTE_L // XL + 1, B) * XL
+    err = k1_out[0].cpu().numpy()
+    mask = (err >= 0) & (rng.random(B) < 0.9)
+    t = [torch.as_tensor(a, dtype=torch.int64, device=dev)
+         for a in (q_row, q_ws, xlen, qlen_row[q_row])]
+    return (*k1_out[3:6], *t, torch.as_tensor(mask, device=dev))
+
+
+def _vote_accs(dev):
+    import torch
+
+    RL = VOTE_ROWS * VOTE_L
+    return [torch.zeros(k * RL + 1, dtype=torch.int32, device=dev)
+            for k in (5, 1, 4, 9)]
+
+
+def _index_add_route(accs, tb, ic, ib, q_row, q_ws, xlen, qlen_w, mask,
+                     tally):
+    """The L4 votes as the CPU route computes them (ec/device_ec.py
+    ``cis_votes_add`` on the CPU: ``index_add_`` with the masked entries
+    sent to each accumulator's spare last slot), here on the card."""
+    import hifiasm_tpu_torch.ec.device_ec as D
+    from hifiasm_tpu_torch.ops.vote_scatter import cis_entries
+
+    for acc, idx, keep in cis_entries(*accs, VOTE_L, tb, ic, ib, q_row, q_ws,
+                                      xlen, qlen_w, mask):
+        D._scatter_count(acc, idx, keep, tally)
+    tally.close(*accs)
+
+
+def phase_votes(k1_out, prob):
+    """Phase 3c: the vote kernel's L4 form on K1's windows against its
+    plain version and the spare-slot index_add_ route (bit-equal
+    accumulators and dropped counts), then timed beside its bound."""
+    import torch
+
+    import hifiasm_tpu_torch.ec.device_ec as D
+    from hifiasm_tpu_torch.ops import cuda_build
+    from hifiasm_tpu_torch.ops import vote_scatter as V
+
+    args = vote_inputs(np.random.default_rng(9), k1_out, prob)
+    tb, ic, ib, q_row, q_ws, xlen, qlen_w, mask = args
+    B, XL = tb.shape
+    dev = tb.device
+    saved = V.cis_votes.launches
+    outs = {}
+    for tag in ("kernel", "plain", "index_add"):
+        accs = _vote_accs(dev)
+        tally = D.VoteTally(dev)
+        if tag == "index_add":
+            _index_add_route(accs, *args, tally)
+        else:
+            fn = V.cis_votes if tag == "kernel" else V.cis_votes_torch
+            fn(*accs, VOTE_L, *args, tally.given(4 * tb.numel()))
+        torch.cuda.synchronize()
+        if tag == "index_add":
+            for a in accs:        # the spare slots held the drops
+                a[-1] = 0
+        outs[tag] = (accs, int(tally.dropped))
+    if V.cis_votes.launches == saved:
+        raise AssertionError("cis_votes launched no vote kernel")
+    names = ("votes", "ins_tot", "ins_bc", "ins_lc")
+    for tag in ("plain", "index_add"):
+        _equal(f"vote kernel against {tag}", names, outs["kernel"][0],
+               outs[tag][0])
+        if outs["kernel"][1] != outs[tag][1]:
+            raise AssertionError(f"vote kernel dropped {outs['kernel'][1]} "
+                                 f"entries, {tag} {outs[tag][1]}")
+    accs = outs["kernel"][0]
+    given = 4 * B * XL
+    dropped = outs["kernel"][1]
+    kept = given - dropped
+    touched = sum(int((a != 0).sum()) for a in accs)
+    print(f"[votes] bit-equal to the plain version and to index_add_ on "
+          f"{B} windows: {given} entries, {dropped} dropped "
+          f"({100 * dropped / given:.2f}%), {kept} kept, {touched} "
+          f"accumulator words touched", flush=True)
+
+    def kernel():
+        V.cis_votes(*accs, VOTE_L, *args, None)
+
+    kernel()                                            # warm-up
+    ms = _cuda_ms(kernel, 5, 10)
+    plain_ms = _cuda_ms(lambda: V.cis_votes_torch(*accs, VOTE_L, *args), 3)
+    lib_accs = _vote_accs(dev)
+    library_ms = _cuda_ms(lambda: _index_add_route(
+        lib_accs, *args, D.VoteTally(dev)), 3)
+    V.cis_votes.launches = saved     # comparison launches do not count
+    # bytes the function needs: the plane bytes of the columns it reads
+    # (tb of every kept-window column in range, ic of those, ib where
+    # ic > 0), the descriptors, and a read and a write of every
+    # accumulator word it touches
+    pos, valid = V.abs_index(XL, VOTE_L, q_row, q_ws, xlen, qlen_w, mask)
+    n_cols = int(valid.sum())
+    n_ib = int((valid & (ic > 0)).sum())
+    del pos, valid
+    work = {"entries": given, "kept_atomics": kept, "dropped": dropped,
+            "columns_read": n_cols, "bytes": 2 * n_cols + n_ib + B * 33 +
+            8 * touched}
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    rec = {"name": "vote_scatter", "route": "cuda",
+           "source": "hifiasm_tpu_torch/csrc/vote_scatter.cu",
+           "replaces": None, "shape": {"B": B, "XL": XL, "form": "L4"},
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": t_bytes, "bound_by": "bytes",
+           "atomics_per_s": kept / (ms * 1e-3), "max_abs_err": 0,
+           **cuda_build.info("vote_scatter")}
+    print(f"[votes] XL={XL} B={B} (L4): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound "
+          f"{t_bytes:.4f} ms (bytes: {json.dumps(work)}), "
+          f"{rec['atomics_per_s'] / 1e9:.1f} G kept atomics/s, "
+          f"{rec['regs']} registers, {rec['smem_bytes']} B shared, "
+          f"{rec['blocks_per_sm']} blocks/SM", flush=True)
+    return rec
+
+
 def _n50(lens):
     lens = sorted(lens, reverse=True)
     half, acc = sum(lens) / 2, 0
@@ -475,6 +615,7 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
     import hifiasm_tpu_torch.overlap.chain_device as C
     from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.ops import vote_scatter as V
     from hifiasm_tpu_torch.ops.banded_tb import banded_tb
     from hifiasm_tpu_torch.utils import trace
 
@@ -489,11 +630,15 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
     torch.cuda.reset_peak_memory_stats()
     trace.reset()
     banded_tb.launches = 0
+    V.raw_counts.launches = V.cis_votes.launches = V.masked_add.launches = 0
     t0 = time.time()
     res = assemble(store, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"banded_tb": banded_tb.launches}
+    launches = {"banded_tb": banded_tb.launches,
+                "vote_scatter": {"L2": V.raw_counts.launches,
+                                 "L4": V.cis_votes.launches,
+                                 "seam": V.masked_add.launches}}
     gfa = f"{pfx}.bp.p_ctg.gfa"
     with open(gfa) as f:
         n_seg = sum(1 for ln in f if ln.startswith("S\t"))
@@ -501,6 +646,9 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
         raise AssertionError(f"{gfa} has no contigs")
     if launches["banded_tb"] == 0:
         raise AssertionError("the main path launched no K1 kernel")
+    if not (launches["vote_scatter"]["L2"] and launches["vote_scatter"]["L4"]):
+        raise AssertionError("the main path's votes launched no vote kernel "
+                             f"in L2 or L4: {launches['vote_scatter']}")
     if P.STATS["frontend_rounds"] == 0 or A.STATS["chunks"] == 0:
         raise AssertionError("the EC rounds did not take the device "
                              "front end")
@@ -519,6 +667,9 @@ def phase_main(out_dir: str, genome_len: int, depth: float, read_len: int,
              "device_ec_parts_s": {k: v for k, v in D.STATS.items()
                                    if k.endswith("_s")},
              "k1_launches": launches["banded_tb"],
+             "vote_launches": launches["vote_scatter"],
+             "vote_adds": D.STATS["vote_adds"],
+             "vote_dropped_adds": D.STATS["vote_dropped_adds"],
              "windows_aligned": D.STATS["windows"],
              "retry_windows": D.STATS["retry_windows"],
              "host_dag_reads": P.STATS["host_dag_reads"],
@@ -1735,9 +1886,11 @@ def main(argv) -> int:
     stress = k1_stress(np.random.default_rng(8), K1_STRESS, 775, 31)
     rec, k1_out = phase_k1(prob, stress)
     rec_k2 = phase_k2(prob, k1_out)
+    # 3c. the vote kernel on K1's tracebacks
+    rec_votes = phase_votes(k1_out, prob)
     del k1_out
     if kernels_only:
-        print(json.dumps({"kernels": [rec, rec_k2]}), flush=True)
+        print(json.dumps({"kernels": [rec, rec_k2, rec_votes]}), flush=True)
         return 0
 
     # 4. the main path end to end on the card
@@ -1764,6 +1917,8 @@ def main(argv) -> int:
     rec["launches_by_path"] = {"main": launches["banded_tb"],
                                "mesh": mesh_launches}
     rec["launches"] = sum(rec["launches_by_path"].values())
+    rec_votes["launches_by_path"] = {"main": launches["vote_scatter"]}
+    rec_votes["launches"] = sum(launches["vote_scatter"].values())
     # 9b-9d. mesh against cpu mesh and one card; the dryrun; --profile
     phase_mesh_small(out_dir)
     phase_dryrun()
@@ -1775,7 +1930,7 @@ def main(argv) -> int:
 
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"device_index": index}), flush=True)
-    print(json.dumps({"kernels": [rec, rec_k2]}), flush=True)
+    print(json.dumps({"kernels": [rec, rec_k2, rec_votes]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

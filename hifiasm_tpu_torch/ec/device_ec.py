@@ -19,12 +19,15 @@ planes, padded with 4).  Per batch of reads:
 
 The JAX package aggregates with one-hot int8 matmuls and log-shift rolls,
 which work around the TPU's slow scatters.  Here every aggregation is an
-integer scatter-add (``index_add_``) at the absolute position ws + i.
-Integer adds commute, so the sums do not depend on the order and stay
-bit-identical with the JAX package and the host rules.  Masked entries
-go to one spare slot past the end of each accumulator, which keeps the
-scatters free of host synchronisation; the spare slots of the vote
-scatters count the dropped entries (``VoteTally``).
+integer scatter-add at the absolute position ws + i.  Integer adds
+commute, so the sums do not depend on the order and stay bit-identical
+with the JAX package and the host rules.  On a CUDA device the votes of
+L2, L4 and the seams go through the vote kernel (ops/vote_scatter.py),
+which adds only the kept entries and counts the dropped ones on the
+device.  On the CPU they are ``index_add_`` calls in which masked entries
+go to one spare slot past the end of each accumulator; those spare slots
+count the dropped entries (``VoteTally``).  Every other aggregation is an
+``index_add_`` with a spare slot on both devices.
 
 Reference scope covered: gen_hc_r_alin_ea (ecovlp.cpp:2810), rphase_hc
 (:3301), wcns_gen (:2293).
@@ -42,6 +45,7 @@ import torch.nn.functional as F
 from hifiasm_tpu_torch.config import THRESHOLD_MAX_SIZE, WINDOW_HC
 from hifiasm_tpu_torch.ec.window_align import plan_windows_many, retry_plan
 from hifiasm_tpu_torch.io.readstore import ReadStore, revcomp_codes
+from hifiasm_tpu_torch.ops import vote_scatter
 from hifiasm_tpu_torch.ops.banded_tb import banded_tb
 from hifiasm_tpu_torch.overlap.anchors import OverlapRegions
 from hifiasm_tpu_torch.parallel.mesh import device_of
@@ -49,8 +53,9 @@ from hifiasm_tpu_torch.utils import trace
 
 E_BAND = THRESHOLD_MAX_SIZE          # one static band for all windows
 
-# windows per L1 launch and per aggregation step: bounds the [chunk, XL]
-# index temporaries and K1's move log (~1 GiB at XL = 775)
+# windows per L1 launch and per aggregation step: bounds K1's checkpoint
+# scratch (128 MB at XL = 775) and the [chunk, XL] index temporaries of
+# L3 (and, on the CPU, of the votes)
 CHUNK_CUDA = 65536
 CHUNK_CPU = 8192
 
@@ -132,23 +137,16 @@ def gather_windows(bank: DeviceBank, XL: int, e: int, q_rid, q_ws, xlen,
 # L2-L4: integer scatter-add aggregation at absolute read positions
 
 
-def _abs_index(XL: int, L: int, q_row, q_ws, xlen, qlen_w, okm):
-    """Flat (row, pos) index [N, XL] of each window column and its mask:
-    inside [ws, ws + xlen), on a kept window, before the read's end."""
-    i = torch.arange(XL, device=q_row.device)[None, :]
-    pos = q_ws[:, None] + i
-    valid = okm[:, None] & (i < xlen[:, None]) & (pos < qlen_w[:, None])
-    return q_row[:, None] * L + pos, valid
-
-
 class VoteTally:
     """The entries one device's vote scatter-adds are given in a batch
-    (``adds``, from shapes on the host) and those dropped: each dropped
-    entry adds 1 to its accumulator's spare last slot, which ``close``
-    sums into ``dropped`` on the device, unfetched.  A spare slot is
-    int32: before the entries given to it since it was last emptied could
-    pass 2**31 - 1 (a batch of over 2.77 M windows of 775 columns), it
-    is emptied into ``dropped``, which is int64."""
+    (``adds``, from shapes on the host) and those dropped, in ``dropped``
+    on the device, unfetched.  On a CUDA device the vote kernel adds its
+    dropped entries to ``dropped`` itself (``given``), and the spare slots
+    stay 0.  On the CPU each dropped entry adds 1 to its accumulator's
+    spare last slot, which ``close`` sums into ``dropped``.  A spare slot
+    is int32: before the entries given to it since it was last emptied
+    could pass 2**31 - 1 (a batch of over 2.77 M windows of 775 columns),
+    it is emptied into ``dropped``, which is int64."""
 
     LIMIT = 2 ** 31 - 1
 
@@ -165,6 +163,12 @@ class VoteTally:
         self._since[key] = self._since.get(key, 0) + n
         self.adds += n
 
+    def given(self, n: int) -> torch.Tensor:
+        """Counts ``n`` entries given to a vote kernel launch; returns the
+        counter the kernel adds the dropped ones to."""
+        self.adds += n
+        return self.dropped
+
     def close(self, *accs: torch.Tensor) -> None:
         for acc_flat in accs:
             self.dropped += acc_flat[-1]
@@ -175,7 +179,7 @@ def _scatter_count(acc_flat: torch.Tensor, idx: torch.Tensor,
                    keep: torch.Tensor, tally: Optional[VoteTally] = None
                    ) -> None:
     """acc_flat[idx] += 1 where keep; dropped entries land in the spare
-    last slot.  ``tally`` counts the entries."""
+    last slot.  ``tally`` counts the entries.  The CPU's vote scatter."""
     dump = acc_flat.numel() - 1
     idx = torch.where(keep, idx, torch.full_like(idx, dump)).reshape(-1)
     if tally is not None:
@@ -183,15 +187,21 @@ def _scatter_count(acc_flat: torch.Tensor, idx: torch.Tensor,
     acc_flat.index_add_(0, idx, torch.ones_like(idx, dtype=acc_flat.dtype))
 
 
+def _dropped(tally: Optional[VoteTally], n: int) -> Optional[torch.Tensor]:
+    return None if tally is None else tally.given(n)
+
+
 def raw_counts_add(cnt: torch.Tensor, L: int, tb, q_row, q_ws, xlen,
                    qlen_w, w_ok, tally: Optional[VoteTally] = None) -> None:
     """cnt [5*Rp*L + 1] int32 += per-allele counts (port of
     _raw_counts_scan): class tb in 0..4 at (row, ws + i)."""
-    XL = tb.shape[1]
-    RL = (cnt.numel() - 1) // 5
-    pos, valid = _abs_index(XL, L, q_row, q_ws, xlen, qlen_w, w_ok)
-    cls = tb.long()
-    _scatter_count(cnt, cls * RL + pos, valid & (cls < 5), tally)
+    if tb.device.type != "cpu":
+        vote_scatter.raw_counts(cnt, L, tb, q_row, q_ws, xlen, qlen_w, w_ok,
+                                _dropped(tally, tb.numel()))
+        return
+    for acc, idx, keep in vote_scatter.raw_entries(cnt, L, tb, q_row, q_ws,
+                                                   xlen, qlen_w, w_ok):
+        _scatter_count(acc, idx, keep, tally)
 
 
 def het_agree_add(n_same: torch.Tensor, n_flip: torch.Tensor,
@@ -203,7 +213,8 @@ def het_agree_add(n_same: torch.Tensor, n_flip: torch.Tensor,
     land in the spare slot."""
     XL = tb.shape[1]
     L = bank_rows.shape[1]
-    pos, valid = _abs_index(XL, L, q_row, q_ws, xlen, qlen_w, w_ok)
+    pos, valid = vote_scatter.abs_index(XL, L, q_row, q_ws, xlen, qlen_w,
+                                        w_ok)
     p = torch.where(valid, pos, torch.zeros_like(pos))
     qa = bank_rows.reshape(-1)[p].long()
     al = alt.reshape(-1)[p].long()
@@ -224,17 +235,15 @@ def cis_votes_add(votes, ins_tot, ins_bc, ins_lc, L: int, tb, ic, ib,
     """votes [5*Rp*L+1], ins_tot [Rp*L+1], ins_bc [4*Rp*L+1],
     ins_lc [9*Rp*L+1] int32 += cis-window votes (port of
     _cis_votes_scan)."""
-    XL = tb.shape[1]
-    RL = ins_tot.numel() - 1
-    pos, valid = _abs_index(XL, L, q_row, q_ws, xlen, qlen_w, w_cis)
-    cls = tb.long()
-    _scatter_count(votes, cls * RL + pos, valid & (cls < 5), tally)
-    c = ic.long()
-    has = valid & (c > 0)
-    _scatter_count(ins_tot, pos, has, tally)
-    b = ib.long()
-    _scatter_count(ins_bc, b * RL + pos, has & (b < 4), tally)
-    _scatter_count(ins_lc, c.clamp(max=8) * RL + pos, has, tally)
+    if tb.device.type != "cpu":
+        vote_scatter.cis_votes(votes, ins_tot, ins_bc, ins_lc, L, tb, ic, ib,
+                               q_row, q_ws, xlen, qlen_w, w_cis,
+                               _dropped(tally, 4 * tb.numel()))
+        return
+    for acc, idx, keep in vote_scatter.cis_entries(
+            votes, ins_tot, ins_bc, ins_lc, L, tb, ic, ib, q_row, q_ws, xlen,
+            qlen_w, w_cis):
+        _scatter_count(acc, idx, keep, tally)
 
 
 def seam_add(ins_tot, ins_bc, ins_lc, Rp: int, L: int, rowc, colc, base,
@@ -245,10 +254,14 @@ def seam_add(ins_tot, ins_bc, ins_lc, Rp: int, L: int, rowc, colc, base,
     okm = (is_match[ov] == 1) & (rowc >= 0) & (rowc < Rp) & \
         (colc >= 0) & (colc < L) & (base >= 0) & (base < 4)
     pos = rowc * L + colc
-    _scatter_count(ins_tot, pos, okm, tally)
-    _scatter_count(ins_bc, base * RL + pos, okm, tally)
-    _scatter_count(ins_lc, glen.clamp(max=8) * RL + pos, okm & (glen >= 0),
-                   tally)
+    subs = ((ins_tot, pos, okm), (ins_bc, base * RL + pos, okm),
+            (ins_lc, glen.clamp(max=8) * RL + pos, okm & (glen >= 0)))
+    for acc, idx, keep in subs:
+        if acc.device.type != "cpu":
+            vote_scatter.masked_add(acc, idx, keep,
+                                    _dropped(tally, idx.numel()))
+        else:
+            _scatter_count(acc, idx, keep, tally)
 
 
 def classify(n_same, n_flip, het_cnt, ov_qrow, usable) -> torch.Tensor:

@@ -24,7 +24,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 # kernel name -> source file under csrc/
-SOURCES = {"banded_tb": "banded_tb.cu", "banded_fwd": "banded_fwd.cu"}
+SOURCES = {"banded_tb": "banded_tb.cu", "banded_fwd": "banded_fwd.cu",
+           "vote_scatter": "vote_scatter.cu"}
 
 BUILD_LOGS: Dict[str, str] = {}       # compiler output (ptxas -v) per kernel
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -94,10 +95,11 @@ def build(names=None) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, compiled on first use."""
+    """The kernel's library, compiled on first use together with every
+    other library not built yet."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
+        build()
         lib = _LIBS[name] = ctypes.CDLL(library_path(name))
     return lib
 
