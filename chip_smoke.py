@@ -10,6 +10,8 @@
                                        # device index stages
     python3 chip_smoke.py --ont        # phases 1, 2 and 11-11b: the
                                        # ONT mode (--ont)
+    python3 chip_smoke.py --dag        # phases 1, 2 and 12: the host DAG
+                                       # pass from gathered tracebacks
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -120,8 +122,20 @@ Phases, in order; any failure raises and the script exits nonzero:
     launch counts, zeroed before it, must show K1 and the vote kernel's
     L2 and L4 forms, and are the ``launches`` of both kernel records.
 
-The line before the kernel table holds phase 10's times and counts as
-``{"device_index": ...}``.  The line before the last is the kernel
+12. the host DAG pass of reads with an ambiguity cluster, whose strings
+    come from the columns of K1's tracebacks that DeviceEC gathers on
+    the card: a small store of the benchmark's human-repeat proxy (40 kb,
+    15x HiFi of 6 kb) and ``ont_store`` (with --ont), three EC rounds
+    each, on cuda (a worker a CPU) and on cpu (none): the corrected reads
+    and bp.p_ctg.gfa byte-identical, reads on the host DAG pass in both,
+    none of them without its columns; the gather's counters
+    (``dag_gather_windows``, ``dag_gather_bytes``, ``dag_gather_s``) and
+    the host DAG's are printed as ``{"dag": ...}``.
+
+Phase 11 runs with ``--ont`` only.  The line before the kernel table
+holds phase 10's times and counts as ``{"device_index": ...}``, the
+line before it phase 12's as ``{"dag": ...}``.  The line before the
+last is the kernel
 table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
@@ -329,6 +343,21 @@ def ont_store(seed: int = 19, genome_len: int = 20000, depth: float = 12,
     t = dict(ONT_READS, depth=depth, mean_len=mean_len,
              chimera_frac=chimera_frac)
     reads, _ = ont_reads(rng, g, t)
+    return ReadStore.from_arrays([f"r{i}" for i in range(len(reads))],
+                                 reads)
+
+
+def proxy_store(seed: int = 3, genome_len: int = 40000, depth: float = 15,
+                mean_len: int = 6000):
+    """A small HiFi store of the benchmark's human-repeat proxy genome
+    (``proxy_genome``: an alpha-satellite HOR array, LINEs, STR/VNTR
+    runs, segmental duplications), 0.3% errors, 1.5% chimeric reads."""
+    from benchmark.inputs.synth import hifi_reads, proxy_genome
+    from hifiasm_tpu_torch.io.readstore import ReadStore
+
+    rng = np.random.default_rng(seed)
+    g = proxy_genome(rng, genome_len)
+    reads, _ = hifi_reads(rng, g, depth, mean_len, 0.003, 0.015, 0.35)
     return ReadStore.from_arrays([f"r{i}" for i in range(len(reads))],
                                  reads)
 
@@ -1963,6 +1992,59 @@ def phase_build():
           flush=True)
 
 
+def phase_dag(out_dir: str) -> dict:
+    """Phase 12: the host DAG pass from traceback columns gathered on the
+    card, on ``proxy_store`` and ``ont_store`` (--ont), cuda (a worker a
+    CPU) against cpu (one process); returns each run's counters."""
+    import hifiasm_tpu_torch.ec.device_ec as D
+    import hifiasm_tpu_torch.ec.pipeline as P
+    from hifiasm_tpu_torch.assemble import assemble
+    from hifiasm_tpu_torch.config import HifiasmConfig
+    from hifiasm_tpu_torch.utils import trace
+
+    out = {}
+    for name, make, kw in (("proxy", proxy_store, {}),
+                           ("ont", ont_store,
+                            {"is_ont": True, "bf_shift": 37})):
+        reads, gfa = {}, {}
+        for dev in ("cuda", "cpu"):
+            pfx = os.path.join(out_dir, f"dag_{name}_{dev}")
+            trace.reset()
+            t0 = time.time()
+            res = assemble(make(), HifiasmConfig(
+                output_prefix=pfx, ignore_bin=True, mesh_devices=1,
+                threads=(os.cpu_count() or 1) if dev == "cuda" else 1,
+                n_rounds_ec=3, **kw), device=dev)
+            c = {k: P.STATS[k] for k in (
+                "ec_rounds", "consensus_reads", "host_dag_reads",
+                "dag_clusters", "host_dag_fallback_reads", "host_dag_s",
+                "consensus_s")}
+            c.update({k: D.STATS[k] for k in (
+                "dag_gather_windows", "dag_gather_bytes", "dag_gather_s")})
+            c["wall_s"] = time.time() - t0
+            out[f"{name}_{dev}"] = c
+            print(f"[dag] {name} {dev}: {json.dumps(c)}", flush=True)
+            if c["host_dag_reads"] == 0 or c["dag_gather_windows"] == 0:
+                raise AssertionError(f"{name} on {dev}: no read took the "
+                                     "host DAG pass")
+            if c["host_dag_fallback_reads"]:
+                raise AssertionError(f"{name} on {dev}: reads on the host "
+                                     "DAG pass without their columns")
+            reads[dev] = [res.store.get_codes(i).tobytes()
+                          for i in range(res.store.n_reads)]
+            with open(f"{pfx}.bp.p_ctg.gfa", "rb") as f:
+                gfa[dev] = f.read()
+        if reads["cuda"] != reads["cpu"]:
+            raise AssertionError(f"{name}: the corrected reads differ "
+                                 "between cuda and cpu")
+        if gfa["cuda"] != gfa["cpu"] or not gfa["cpu"]:
+            raise AssertionError(f"{name}: bp.p_ctg.gfa differs between "
+                                 "cuda and cpu (or is empty)")
+        print(f"[dag] {name}: cuda and cpu corrected reads and "
+              "bp.p_ctg.gfa byte-identical", flush=True)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -1970,9 +2052,11 @@ def main(argv) -> int:
     mesh_only = argv == ["--mesh"]
     index_only = argv == ["--index"]
     ont_only = argv == ["--ont"]
-    if argv and not (kernels_only or mesh_only or index_only or ont_only):
-        print("usage: chip_smoke.py [--kernels | --mesh | --index | --ont]",
-              file=sys.stderr)
+    dag_only = argv == ["--dag"]
+    if argv and not (kernels_only or mesh_only or index_only or ont_only
+                     or dag_only):
+        print("usage: chip_smoke.py [--kernels | --mesh | --index | --ont "
+              "| --dag]", file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -2004,6 +2088,15 @@ def main(argv) -> int:
         index["small"] = phase_index_small()
         print(f"[done] {time.time() - t_start:.1f} s", flush=True)
         print(json.dumps({"device_index": index}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if dag_only:
+        dag = phase_dag(out_dir)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        print(f"[done] {time.time() - t_start:.1f} s", flush=True)
+        print(json.dumps({"dag": dag}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2087,12 +2180,15 @@ def main(argv) -> int:
     phase_mesh_small(out_dir)
     phase_dryrun()
     phase_profile(out_dir)
-    shutil.rmtree(out_dir, ignore_errors=True)
     # 10. the device index stages at phase 4's size; 10b card against CPU
     index = phase_index(4_000_000, MAIN_DEPTH, 15000, 0.003)
     index["small"] = phase_index_small()
+    # 12. the host DAG pass from tracebacks gathered on the card
+    dag = phase_dag(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
 
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
+    print(json.dumps({"dag": dag}), flush=True)
     print(json.dumps({"device_index": index}), flush=True)
     print(json.dumps({"kernels": [rec, rec_k2, rec_votes]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,7 +43,10 @@ import torch
 import torch.nn.functional as F
 
 from hifiasm_tpu_torch.config import THRESHOLD_MAX_SIZE, WINDOW_HC
-from hifiasm_tpu_torch.ec.window_align import plan_windows_many, retry_plan
+from hifiasm_tpu_torch.ec.consensus import _ambiguity_clusters, cluster_range
+from hifiasm_tpu_torch.ec.window_align import (
+    WindowColumns, plan_windows_many, retry_plan,
+)
 from hifiasm_tpu_torch.io.readstore import ReadStore, revcomp_codes
 from hifiasm_tpu_torch.ops import vote_scatter
 from hifiasm_tpu_torch.ops.banded_tb import banded_tb
@@ -71,12 +74,16 @@ _PAD_R = 1024
 # vote scatter-adds of L2, L4 and the seams and those of them dropped
 # (masked off), and the seconds (trace.span) of the bank upload, window
 # planning (host), L1 (gather + K1, synced), L2-L5 (synced at the
-# packed-plane fetch) and the host work between and after them (ec.prep,
-# ec.package)
+# packed-plane fetches) and the host work between and after them
+# (ec.prep, ec.package); for the host DAG pass of reads with an
+# ambiguity cluster, the windows whose columns were gathered from K1's
+# outputs, the bytes fetched and the seconds of the gather
+# (ec.dag_gather)
 STATS = trace.register("device_ec", {
     "windows": 0, "retry_windows": 0, "k1_rows": 0, "vote_adds": 0,
     "vote_dropped_adds": 0, "bank_s": 0.0, "plan_s": 0.0, "align_s": 0.0,
-    "vote_s": 0.0, "host_s": 0.0})
+    "vote_s": 0.0, "host_s": 0.0, "dag_gather_windows": 0,
+    "dag_gather_bytes": 0, "dag_gather_s": 0.0})
 # per shard index (0 without a mesh): windows aligned and K1 launches
 SHARD_STATS: Dict[int, Dict[str, int]] = trace.register("device_ec.shards",
                                                         {})
@@ -363,10 +370,51 @@ def finalize_ins(ins_bc: torch.Tensor, ins_lc: torch.Tensor):
     return b, ln
 
 
+# room for the temporaries of the ambiguity mask, which L5 computes while
+# K1's tracebacks are still held for the host DAG pass's gather: the
+# whole batch at once would raise the peak above that of L5's decisions
+AMB_TEMP_BYTES = 64 << 20
+
+
+def amb_plane(votes, ins_tot, het_u8, bank_rows, qlen_rows) -> torch.Tensor:
+    """_ambiguous_mask over the batch, [Rp, L] bool: the ambiguity mask of
+    ``decide_planes``, computed without its [5, Rp, L] stacks."""
+    L = bank_rows.shape[1]
+    pos = torch.arange(L, device=votes.device)[None, :]
+    in_r = pos < qlen_rows[:, None]
+    qa = bank_rows.int().clamp(max=3)
+    dels = votes[4]
+    it = ins_tot
+    cov = dels + in_r.int()               # the query's own vote, once
+    wv = dels
+    for k in range(4):
+        cov = cov + votes[k]
+        wv = torch.maximum(wv, votes[k] + ((qa == k) & in_r).int())
+    return (cov >= 3) & ((2 * wv <= cov) |
+                         ((4 * dels > cov) & (2 * dels <= cov)) |
+                         ((4 * it > cov) & (2 * it <= cov))) & in_r & \
+        (het_u8 == 0)
+
+
+def amb_bits(votes, ins_tot, het_u8, bank_rows, qlen_rows,
+             rows: int = 0) -> torch.Tensor:
+    """``pack_bits(amb_plane(...))``, a block of ``rows`` rows at a time
+    (by default as many as keep its temporaries, about 32 bytes a column,
+    within AMB_TEMP_BYTES)."""
+    Rp, L = bank_rows.shape
+    rows = rows or max(1, AMB_TEMP_BYTES // (32 * L))
+    return torch.cat([pack_bits(amb_plane(
+        votes[:, r:r + rows], ins_tot[r:r + rows], het_u8[r:r + rows],
+        bank_rows[r:r + rows], qlen_rows[r:r + rows]))
+        for r in range(0, Rp, rows)])
+
+
 def decide_planes(votes, ins_tot, ins_bc, ins_lc, het_u8, bank_rows,
-                  qlen_rows):
+                  qlen_rows, amb_pk=None):
     """consensus_decide + _ambiguous_mask (port of _decide_planes);
-    returns the packed (subw, pass_ins, ins base, ins len - 1, amb)."""
+    returns the packed (subw, pass_ins, ins base, ins len - 1, amb).
+    ``amb_pk``: the batch's packed ambiguity mask, if it is already
+    there."""
     Rp, L = bank_rows.shape
     pos = torch.arange(L, device=votes.device)[None, :]
     in_r = pos < qlen_rows[:, None]
@@ -394,14 +442,13 @@ def decide_planes(votes, ins_tot, ins_bc, ins_lc, het_u8, bank_rows,
     pass_sub = pass_sub | thin
     winner = torch.where(thin, v_win, winner)
     pass_ins = ((cov >= 3) & (2 * it > cov) | thin_ins) & in_r & ~het
-    dels = v[4]
-    amb = (cov >= 3) & ((2 * wv <= cov) |
-                        ((4 * dels > cov) & (2 * dels <= cov)) |
-                        ((4 * it > cov) & (2 * it <= cov))) & in_r & ~het
+    if amb_pk is None:
+        amb_pk = pack_bits(amb_plane(votes, ins_tot, het_u8, bank_rows,
+                                     qlen_rows))
     ib, il = finalize_ins(ins_bc, ins_lc)
     subw = torch.where(pass_sub, winner, torch.full_like(winner, 15))
     return (pack4(subw), pack_bits(pass_ins), pack2(ib), pack4(il - 1),
-            pack_bits(amb))
+            amb_pk)
 
 
 def _unpack_bits(a: np.ndarray, L: int) -> np.ndarray:
@@ -433,6 +480,9 @@ class ReadECOut:
     ts: np.ndarray
     te: np.ndarray
     het_sites: np.ndarray
+    # reads with an ambiguity cluster: the columns of their final window
+    # results that the host DAG pass reads
+    dag: Optional[WindowColumns] = None
 
 
 def lpt_rows(wc: np.ndarray, n_dev: int) -> Tuple[np.ndarray, int]:
@@ -608,6 +658,9 @@ class DeviceEC:
         per-read consensus inputs (packed decision planes, unpacked).
         ``plans``: ready-made window plans per read (the device front
         end's, with t_ws); without them each read is planned here.
+        Each read whose ambiguity mask holds a cluster gets, in
+        ``ReadECOut.dag``, the columns of its cis overlaps' window
+        results over its clusters' ranges (``_dag_gather``).
 
         Reads stream through in bounded batches: the vote/count planes
         are sized [rows_per_batch, L], not [n_reads, L]."""
@@ -709,6 +762,7 @@ class DeviceEC:
             ridx, t2 = retry_plan(j_ovid, j_tws, j_xlen, w_ok, win_y, e)
             ok_slot = w_ok.copy()
         n_r = len(ridx)
+        own2, planes2 = [], []
         if n_r:
             with trace.span("ec.L1_retry", STATS, "align_s"):
                 own2 = self._owners(j_qrow[ridx], Rp)
@@ -884,9 +938,27 @@ class DeviceEC:
                                      im, tly)
                     tly.close(votes, ins_tot, ins_bc, ins_lc)
                     acc.append((votes, ins_tot, ins_bc, ins_lc))
-                del steps, segs, planes1
-            # ---- L5: consensus decisions + ambiguity mask on the
-            # device; the one fetch of the stage ----
+            # ---- L5, first the ambiguity mask and cis/trans: they say
+            # which window results the host DAG pass will read, while
+            # K1's tracebacks are still on the device ----
+            with trace.span("ec.L5"):
+                ambs = [amb_bits(votes[:-1].view(5, rb, L),
+                                 ins_tot[:-1].view(rb, L), hets[s][0],
+                                 bank_rows[s], qlen_rows[s])
+                        for s, (votes, ins_tot, _, _) in enumerate(acc)]
+                ismatch_h = is_match_d.cpu().numpy()
+                amb_h = np.concatenate([a.cpu().numpy() for a in ambs])
+        with trace.span("ec.dag_gather", STATS, "dag_gather_s"):
+            dag = self._dag_gather(
+                read_ovs, ov_base, row_of, amb_h, ismatch_h, j_ovid, j_ws,
+                j_xlen, ok_slot[:W], w_ok, ridx, own1, planes1, own2,
+                planes2, seam)
+        # the tracebacks are freed before the decisions, which need more
+        # room than the ambiguity mask's row blocks
+        del steps, segs, planes1, planes2
+        with trace.span("ec.vote", STATS, "vote_s"):
+            # ---- L5: consensus decisions on the device; the stage's
+            # last fetch ----
             with trace.span("ec.L5"):
                 packed = []
                 for s in range(nd):
@@ -895,11 +967,10 @@ class DeviceEC:
                         votes[:-1].view(5, rb, L), ins_tot[:-1].view(rb, L),
                         ins_bc[:-1].view(4, rb, L),
                         ins_lc[:-1].view(9, rb, L), hets[s][0],
-                        bank_rows[s], qlen_rows[s]))
-                ismatch_h = is_match_d.cpu().numpy()
-                (het_pk_h, subw_h, ins_h, ib_h, il_h, amb_h) = (
+                        bank_rows[s], qlen_rows[s], amb_pk=ambs[s])[:4])
+                (het_pk_h, subw_h, ins_h, ib_h, il_h) = (
                     np.concatenate([p[k].cpu().numpy() for p in packed])
-                    for k in range(6))
+                    for k in range(5))
                 # the device is idle after the fetch: no wait
                 STATS["vote_dropped_adds"] += sum(int(t.dropped)
                                                   for t in tallies)
@@ -924,7 +995,7 @@ class DeviceEC:
                 hs = np.flatnonzero(het_bits[row])
                 out[rid] = ReadECOut(
                     ov, is_match_all[sl], win_tot[sl], win_ok[sl],
-                    ov_err[sl], ts_ov[sl], te_ov[sl], hs)
+                    ov_err[sl], ts_ov[sl], te_ov[sl], hs, dag.get(rid))
                 qlen = int(self.store.lens[rid])
                 cns_in[rid] = (subw_all[row, :qlen], ins_all[row, :qlen],
                                ib_all[row, :qlen], il_all[row, :qlen],
@@ -972,6 +1043,125 @@ class DeviceEC:
         if not rows_s:
             return None
         return np.array([rows_s, cols_s, base_s, len_s, ov_s], np.int64)
+
+    def _dag_gather(self, read_ovs, ov_base, row_of, amb_pk, is_match,
+                    j_ovid, j_ws, j_xlen, ok1, w_ok, ridx, own1, planes1,
+                    own2, planes2, seam) -> Dict[int, WindowColumns]:
+        """The window results that the host DAG pass of each read with an
+        ambiguity cluster reads (ec/consensus.dag_cluster_consensus),
+        gathered from K1's outputs on the devices: over the union of its
+        clusters' ranges (``cluster_range``), the columns of every
+        accepted window of its cis overlaps, from the pass that was
+        accepted (the retry only where pass 1 failed), and the seams
+        there.  One fetch a device.  ``amb_pk``: the packed ambiguity
+        planes; ``ok1``: pass 1's acceptance; ``w_ok``: the final one."""
+        XL = self.wl
+        big = np.int64(1) << np.int64(32)     # query columns stay below
+        # windows are in (overlap, start) order
+        key = j_ovid * big + j_ws
+        pg, ps, pe, iv_of, n_pairs, n_ov = [], [], [], {}, [], {}
+        for rid, ov in read_ovs:
+            row = row_of[rid]
+            if not amb_pk[row].any():
+                continue
+            qlen = int(self.store.lens[rid])
+            amb = np.unpackbits(amb_pk[row], bitorder="little")[:qlen]
+            clusters = _ambiguity_clusters(amb.astype(bool))
+            if not clusters:
+                continue
+            q = self.store.get_codes(rid)
+            ivs = []
+            for cs, ce in sorted(cluster_range(q, cs, ce)
+                                 for cs, ce in clusters):
+                if ivs and cs <= ivs[-1][1]:
+                    ivs[-1][1] = max(ivs[-1][1], ce)
+                else:
+                    ivs.append([cs, ce])
+            iv_of[rid] = np.array(ivs, np.int64).reshape(-1, 2)
+            n_ov[rid] = len(ov)
+            n_pairs.append(0)
+            b = ov_base[rid]
+            cis = np.flatnonzero(is_match[b:b + len(ov)] == 1)
+            xs = ov.x_s[cis].astype(np.int64)
+            xe = ov.x_e[cis].astype(np.int64) + 1
+            for cs, ce in ivs:
+                o = cis[(xs < ce) & (xe > cs)]
+                pg.append(b + o)
+                ps.append(np.full(len(o), cs, np.int64))
+                pe.append(np.full(len(o), ce, np.int64))
+                n_pairs[-1] += len(o)
+        if not iv_of:
+            return {}
+        g, r0, r1 = (np.concatenate(a) for a in (pg, ps, pe))
+        # each (overlap, range) pair's windows: from the one holding the
+        # range's start to the last starting before its end
+        lo = np.maximum(np.searchsorted(key, g * big + r0, "right") - 1,
+                        np.searchsorted(key, g * big, "left"))
+        cnt = np.maximum(np.searchsorted(key, g * big + r1, "left") - lo, 0)
+        pair = np.repeat(np.arange(len(g)), cnt)
+        w = np.repeat(lo, cnt) + np.arange(len(pair)) - \
+            np.repeat(np.cumsum(cnt) - cnt, cnt)
+        c0 = np.maximum(j_ws[w], r0[pair])
+        c1 = np.minimum(j_ws[w] + j_xlen[w], r1[pair])
+        keep = w_ok[w] & (c1 > c0)
+        pair, w, c0, n = pair[keep], w[keep], c0[keep], (c1 - c0)[keep]
+        # each window's final result: its device, pass and row there
+        p1 = ok1[w]
+        shard = np.zeros(len(w), np.int64)
+        prow = np.zeros(len(w), np.int64)
+        for own, m, wi in ((own1, p1, w[p1]),
+                           (own2, ~p1, np.searchsorted(ridx, w[~p1]))):
+            if not m.any():
+                continue
+            sh_of = np.zeros(sum(len(idx) for idx in own), np.int64)
+            row_in = np.zeros_like(sh_of)
+            for s, idx in enumerate(own):
+                sh_of[idx] = s
+                row_in[idx] = np.arange(len(idx))
+            shard[m] = sh_of[wi]
+            prow[m] = row_in[wi]
+        start = prow * XL + (c0 - j_ws[w])
+        src = np.zeros(len(w), np.int64)
+        vals, off = [], 0
+        for s, dev in enumerate(self.devices):
+            parts = []
+            for planes, m in ((planes1, p1), (planes2, ~p1)):
+                idx = np.flatnonzero(m & (shard == s))
+                if not len(idx):
+                    continue
+                tot = int(n[idx].sum())
+                st = self._t(start[idx], dev=dev)
+                ln = self._t(n[idx], dev=dev)
+                flat = torch.repeat_interleave(
+                    st - (torch.cumsum(ln, 0) - ln), ln, output_size=tot) + \
+                    torch.arange(tot, device=dev)
+                parts.append(torch.stack([a.reshape(-1)[flat]
+                                          for a in planes[s]]))
+                src[idx] = off + np.cumsum(n[idx]) - n[idx]
+                off += tot
+            if parts:
+                vals.append(torch.cat(parts, 1).cpu().numpy())
+        buf = np.concatenate(vals, 1) if vals else \
+            np.zeros((3, 0), np.uint8)
+        STATS["dag_gather_windows"] += len(np.unique(w))
+        STATS["dag_gather_bytes"] += buf.nbytes
+        # per read: its segments, and its seams inside its ranges
+        if seam is None:
+            seam = np.zeros((5, 0), np.int64)
+        bounds = np.searchsorted(pair, np.cumsum([0] + n_pairs))
+        out = {}
+        for k, rid in enumerate(iv_of):
+            e_sl = slice(bounds[k], bounds[k + 1])
+            b = ov_base[rid]
+            ivs = iv_of[rid]
+            sm = seam[:, (seam[4] >= b) & (seam[4] < b + n_ov[rid])]
+            at = np.searchsorted(ivs[:, 0], sm[1], "right") - 1
+            sm = sm[:, (at >= 0) & (sm[1] < ivs[np.maximum(at, 0), 1])]
+            out[rid] = WindowColumns(
+                g[pair[e_sl]] - b, c0[e_sl], n[e_sl], src[e_sl], buf[0],
+                buf[1], buf[2], np.stack([sm[4] - b, sm[1], sm[3], sm[2]],
+                                         axis=1))
+        return out
 
 
 def _sum_on(dev: torch.device, ts: List[torch.Tensor]) -> torch.Tensor:

@@ -16,8 +16,9 @@ the host applies the per-column decisions.  ``cfg.profile_dir``
 There is no size gate and no host-engine branch: ``ec_round`` always
 takes the device branch on the given device.  The one host step
 inside a round is by design: reads whose vote planes show an ambiguity
-cluster re-run on the host DAG path (traceback strings -> plurality),
-and their count is logged.  The ``--dbg-het-cnt`` debug pass
+cluster take the host DAG pass (traceback strings -> plurality) over
+the columns of K1's tracebacks that DeviceEC gathers for them, and
+their count is logged.  The ``--dbg-het-cnt`` debug pass
 (``het_cnt_pass``) runs on the host, as in the JAX package.
 
 Re-expresses ``cal_ec_r`` / ``worker_hap_ec`` / ``sl_ec_r``
@@ -41,7 +42,6 @@ import torch
 
 from hifiasm_tpu_torch.config import HifiasmConfig
 from hifiasm_tpu_torch.device import resolve_device
-from hifiasm_tpu_torch.ec.consensus import windowed_consensus
 from hifiasm_tpu_torch.ec.phase import phase_overlaps
 from hifiasm_tpu_torch.index.pos_table import FilterTable, build_position_table
 from hifiasm_tpu_torch.io.readstore import ReadStore, revcomp_codes
@@ -64,11 +64,15 @@ LONG_INDEL_WIN_DIFF = 16
 # front end and the mesh gather; mesh_fallback the queries the mesh
 # gather answered from the host table; ec_rounds the rounds run;
 # consensus_reads the reads through the consensus loop, host_dag_reads
-# those of them re-run on the host DAG path and host_dag_s its seconds
+# those of them with an ambiguity cluster, which take the host DAG pass,
+# host_dag_s its seconds, dag_clusters the clusters it resolved and
+# host_dag_fallback_reads those of its reads that DeviceEC gave no
+# traceback columns (their column decisions stand alone)
 STATS = trace.register("pipeline", {
     "index_s": 0.0, "chain_s": 0.0, "anchors_s": 0.0, "plan_many_s": 0.0,
     "tws_s": 0.0, "device_ec_s": 0.0, "consensus_s": 0.0, "host_dag_s": 0.0,
     "ec_rounds": 0, "consensus_reads": 0, "host_dag_reads": 0,
+    "dag_clusters": 0, "host_dag_fallback_reads": 0,
     "frontend_rounds": 0, "mesh_rounds": 0, "mesh_fallback": 0})
 
 
@@ -279,16 +283,14 @@ def _round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
                        device=dev, mesh=mesh)
         outs, cns_in = dec.process(read_ovs, plans=plans)
     with trace.span("ec.consensus", STATS, "consensus_s"):
-        ov_of = dict(read_ovs)
-        get_target = _TargetCache(store)
         # votes can't carry the cluster strings: reads whose vote matrix
-        # shows an ambiguity cluster re-run on the host path (reads are
-        # independent until the barrier below, so they run first, in
-        # cfg.threads worker processes)
+        # shows an ambiguity cluster take the host DAG pass over their
+        # gathered traceback columns (reads are independent until the
+        # barrier below, so they run first, in cfg.threads worker
+        # processes)
         routed = [rid for rid in outs if rid in cns_in
                   and _ambiguity_clusters(cns_in[rid][4])]
-        dag = _host_dags(routed, ov_of, store, mzs, pt, hom_cov, cfg,
-                         get_target)
+        dag = _host_dags(routed, outs, cns_in, store, cfg)
         n_reads = 0
         for rid, eco in outs.items():
             if collect is not None:
@@ -317,7 +319,7 @@ def _round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
         STATS["consensus_reads"] += n_reads
         STATS["host_dag_reads"] += len(routed)
         log("ec_round",
-            f"routed {len(routed)} ambiguous reads to the host DAG path")
+            f"routed {len(routed)} ambiguous reads to the host DAG pass")
         # barrier: write corrections back only after every read is
         # processed
         for rid, seq in new_seqs.items():
@@ -327,13 +329,13 @@ def _round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
     return hom_cov, peak_het, n_corr
 
 
-def _host_dags(rids, ov_of: dict, store: ReadStore, mzs, pt, hom_cov: int,
-               cfg: HifiasmConfig, get_target) -> dict:
-    """The host DAG path of every read in ``rids``: {rid:
+def _host_dags(rids, outs: dict, cns_in: dict, store: ReadStore,
+               cfg: HifiasmConfig) -> dict:
+    """The host DAG pass of every read in ``rids``: {rid:
     ConsensusResult}, timed into ``host_dag_s``.  With ``cfg.threads``
     above 1 the reads are shared, longest first, among that many worker
     processes (at most one a CPU this process may run on), forked here so
-    that they read this round's store, index and overlaps in place; the
+    that they read this round's store and DeviceEC results in place; the
     results are the serial path's, bit for bit."""
     out = {}
     if not rids:
@@ -341,75 +343,67 @@ def _host_dags(rids, ov_of: dict, store: ReadStore, mzs, pt, hom_cov: int,
     with trace.span(None, STATS, "host_dag_s"):
         n = min(int(cfg.threads), len(rids), len(os.sched_getaffinity(0)))
         if n <= 1:
-            for rid in rids:
-                out[rid] = _host_dag(rid, ov_of[rid], store, mzs, pt,
-                                     hom_cov, cfg, get_target)
-            return out
-        global _DAG_JOB
-        _DAG_JOB = (ov_of, store, mzs, pt, hom_cov, cfg)
-        order = sorted(rids, key=lambda r: -int(store.lens[r]))
-        try:
-            with warnings.catch_warnings():
-                # the workers run numpy and the native host library only:
-                # no CUDA, torch or profiler call, which is what a fork of
-                # a threaded process may not make
-                warnings.filterwarnings(
-                    "ignore", message=".*use of fork\\(\\) may lead to "
-                    "deadlocks", category=DeprecationWarning)
-                with ProcessPoolExecutor(
-                        n, mp_context=multiprocessing.get_context("fork"),
-                        initializer=_dag_worker_init) as ex:
-                    out.update(zip(order, ex.map(_dag_worker, order)))
-        finally:
-            _DAG_JOB = None
+            res = [_host_dag(store.get_codes(rid), outs[rid], cns_in[rid])
+                   for rid in rids]
+        else:
+            global _DAG_JOB
+            _DAG_JOB = (outs, cns_in, store)
+            rids = sorted(rids, key=lambda r: -int(store.lens[r]))
+            try:
+                with warnings.catch_warnings():
+                    # the workers run numpy only: no CUDA, torch or
+                    # profiler call, which is what a fork of a threaded
+                    # process may not make
+                    warnings.filterwarnings(
+                        "ignore", message=".*use of fork\\(\\) may lead to "
+                        "deadlocks", category=DeprecationWarning)
+                    with ProcessPoolExecutor(
+                            n, mp_context=multiprocessing.get_context(
+                                "fork")) as ex:
+                        res = list(ex.map(_dag_worker, rids))
+            finally:
+                _DAG_JOB = None
+        for rid, (cns, n_cl, served) in zip(rids, res):
+            out[rid] = cns
+            STATS["dag_clusters"] += n_cl
+            if not served:
+                STATS["host_dag_fallback_reads"] += 1
+                log("ec_round", f"read {rid}: no traceback columns for its "
+                    "ambiguity clusters; its column decisions stand")
     return out
 
 
-# what the host DAG workers read: the round's (overlaps by read, store,
-# minimizers, position table, hom_cov, cfg), set while they run
+# what the host DAG workers read: the round's (DeviceEC results,
+# consensus inputs, store), set while they run
 _DAG_JOB = None
-_DAG_TARGETS = None
-
-
-def _dag_worker_init() -> None:
-    """A host DAG worker: its native kernels on one thread (the workers
-    are the parallelism) and a target cache of its own."""
-    from hifiasm_tpu_torch.native import set_threads
-
-    global _DAG_TARGETS
-    set_threads(1)
-    _DAG_TARGETS = _TargetCache(_DAG_JOB[1])
 
 
 def _dag_worker(rid: int):
-    ov_of, store, mzs, pt, hom_cov, cfg = _DAG_JOB
-    return _host_dag(rid, ov_of[rid], store, mzs, pt, hom_cov, cfg,
-                     _DAG_TARGETS)
+    outs, cns_in, store = _DAG_JOB
+    return _host_dag(store.get_codes(rid), outs[rid], cns_in[rid])
 
 
-def _host_dag(rid: int, ov: OverlapRegions, store: ReadStore, mzs, pt,
-              hom_cov: int, cfg: HifiasmConfig, get_target):
-    """The host DAG path of one read (traceback strings -> DAG
-    plurality, ec/consensus.py)."""
-    from hifiasm_tpu_torch.ec.window_align import align_overlaps
+def _host_dag(q: np.ndarray, eco, cns: tuple):
+    """The host DAG pass of one read (ec/consensus.py): the strings each
+    cis overlap's traceback implies over the read's ambiguity clusters,
+    read from the columns DeviceEC gathered (``eco.dag``), vote on the
+    clusters; the replacements are applied over the device's column
+    decisions.  Returns (ConsensusResult, clusters, whether the read had
+    its columns)."""
+    from hifiasm_tpu_torch.ec.consensus import (
+        _ambiguity_clusters, consensus_apply, dag_cluster_consensus,
+    )
 
-    q = store.get_codes(rid)
-    if len(ov) and len(ov.hit_self) == 0 and \
-            ov.n_hits.max(initial=0) > 0:
-        # hits live on the device: re-derive this read's overlaps on
-        # the host (bit-identical anchors and chain DP)
-        from hifiasm_tpu_torch.overlap.anchors import (
-            chain_many, collect_anchors_many,
-        )
-        an1 = collect_anchors_many(mzs, pt, [rid], store.lens,
-                                   hom_cov)[0]
-        ov = chain_many([(rid, an1, len(q))], store.lens,
-                        ChainParams.for_k(cfg.k),
-                        max_n_chain=cfg.max_n_chain)[0]
-    tbs = align_overlaps(q, ov, get_target, wl=cfg.ec_window,
-                         e_rate=cfg.max_ov_diff_ec)
-    ph = phase_overlaps(q, ov, tbs)
-    return windowed_consensus(q, ov, tbs, ph)
+    subw, ins_p, ib_, il, amb = cns
+    clusters = _ambiguity_clusters(amb)
+    repl = None
+    if eco.dag is not None:
+        repl = dag_cluster_consensus(
+            q, eco.dag.tracebacks(eco.ov), np.flatnonzero(eco.is_match == 1),
+            clusters, eco.het_sites)
+    return (consensus_apply(q, subw != 15, ins_p, subw.astype(np.int64), ib_,
+                            il.astype(np.int64) + 1, repl=repl),
+            len(clusters), eco.dag is not None)
 
 
 def _push_records_stats(paf: PafStore, rev_paf: PafStore, rid: int,

@@ -281,6 +281,66 @@ def _alloc_tracebacks(ov: OverlapRegions) -> OverlapTracebacks:
     )
 
 
+def scatter_segments(tbs: OverlapTracebacks, o, col, n, src, tb, ic,
+                     ib) -> None:
+    """Copy window results into a read's CSR tracebacks: segment k holds
+    ``n[k]`` columns from query column ``col[k]`` of overlap ``o[k]``,
+    read from the flat ``tb``/``ic``/``ib`` arrays at ``src[k]``."""
+    n = np.asarray(n, np.int64)
+    tot = int(n.sum())
+    seg = np.arange(tot) - np.repeat(np.cumsum(n) - n, n)
+    dst = np.repeat(tbs.off[o] + col - tbs.x_s[o], n) + seg
+    s = np.repeat(src, n) + seg
+    tbs.tb[dst] = tb[s]
+    tbs.ins_cnt[dst] = ic[s]
+    tbs.ins_base[dst] = ib[s]
+
+
+def seam_insert(tbs: OverlapTracebacks, o: int, qcol: int, g: int,
+                base: int) -> None:
+    """A window seam's ``g`` skipped target bases of one homopolymer run
+    ``base``, written as an insertion after query column ``qcol`` (the
+    left window's last) of overlap ``o``: taken where the column has no
+    insertion, added to one of the same base."""
+    col = int(tbs.off[o] + qcol - tbs.x_s[o])
+    if tbs.ins_cnt[col] == 0:
+        tbs.ins_cnt[col] = min(g, 255)
+        tbs.ins_base[col] = base
+    elif tbs.ins_base[col] == base:
+        tbs.ins_cnt[col] = min(int(tbs.ins_cnt[col]) + g, 255)
+
+
+@dataclass
+class WindowColumns:
+    """Some columns of one read's final window results (pass 1, or the
+    retry where it won), as gathered from K1's outputs on the device:
+    segment k is ``n[k]`` columns from query column ``col[k]`` of overlap
+    ``o[k]``, at ``src[k]`` in the flat ``tb``/``ins_cnt``/``ins_base``
+    arrays; ``seams`` [k, 4] int64 rows (overlap, query column, gap,
+    base) are the window seams of those columns."""
+
+    o: np.ndarray
+    col: np.ndarray
+    n: np.ndarray
+    src: np.ndarray
+    tb: np.ndarray
+    ins_cnt: np.ndarray
+    ins_base: np.ndarray
+    seams: np.ndarray
+
+    def tracebacks(self, ov: OverlapRegions) -> OverlapTracebacks:
+        """The read's tracebacks over these columns, the host path's
+        (``align_overlaps``) there: the columns scattered as
+        ``WindowBatcher._scatter`` does, then the seam insertions; every
+        other column unaligned (5)."""
+        tbs = _alloc_tracebacks(ov)
+        scatter_segments(tbs, self.o, self.col, self.n, self.src, self.tb,
+                         self.ins_cnt, self.ins_base)
+        for o, qcol, g, base in self.seams.tolist():
+            seam_insert(tbs, o, qcol, g, base)
+        return tbs
+
+
 class WindowBatcher:
     """Accumulates window jobs across many reads, runs them in large
     batches, scatters results back into per-read tracebacks.
@@ -373,23 +433,15 @@ class WindowBatcher:
         """Vectorized per-read scatter of accepted windows into the CSR
         traceback arrays."""
         XL = out_tb.shape[1]
+        flat = (out_tb.reshape(-1), out_ic.reshape(-1), out_ib.reshape(-1))
         for i, (q, ov, tbs, pl) in enumerate(self._reads):
             m = accepted & (jobs["read"][sel] == i)
             if not m.any():
                 continue
             widx = np.flatnonzero(m)
             o = jobs["ov"][sel][widx]
-            ws = jobs["ws"][sel][widx]
-            wl_e = wlen_eff[widx]
-            d0 = tbs.off[o] + ws - tbs.x_s[o]
-            tot = int(wl_e.sum())
-            segarange = np.arange(tot) - np.repeat(
-                np.concatenate([[0], np.cumsum(wl_e[:-1])]), wl_e)
-            dst = np.repeat(d0, wl_e) + segarange
-            srcrow = np.repeat(widx * XL, wl_e) + segarange
-            tbs.tb[dst] = out_tb.reshape(-1)[srcrow]
-            tbs.ins_cnt[dst] = out_ic.reshape(-1)[srcrow]
-            tbs.ins_base[dst] = out_ib.reshape(-1)[srcrow]
+            scatter_segments(tbs, o, jobs["ws"][sel][widx], wlen_eff[widx],
+                             widx * XL, *flat)
             np.add.at(tbs.win_ok, o, 1)
             np.add.at(tbs.err, o, err[widx])
 
@@ -646,14 +698,8 @@ class WindowBatcher:
             seg = t[lo:lo + int(g)]
             if len(seg) == 0 or (seg != seg[0]).any() or seg[0] > 3:
                 continue                # mixed-content/N seam: leave it
-            col = int(tbs.off[o] + jobs["ws"][w] + jobs["wlen"][w] - 1
-                      - tbs.x_s[o])
-            if tbs.ins_cnt[col] == 0:
-                tbs.ins_cnt[col] = min(int(g), 255)
-                tbs.ins_base[col] = int(seg[0])
-            elif tbs.ins_base[col] == seg[0]:
-                tbs.ins_cnt[col] = min(int(tbs.ins_cnt[col]) + int(g),
-                                       255)
+            seam_insert(tbs, o, int(jobs["ws"][w] + jobs["wlen"][w] - 1),
+                        int(g), int(seg[0]))
 
 
 def align_overlaps(q: np.ndarray, ov: OverlapRegions,

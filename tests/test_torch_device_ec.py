@@ -76,6 +76,11 @@ def test_decide_planes_with_ties(seed):
     gb, gl = T.finalize_ins(_t(ins_bc), _t(ins_lc))
     _eq(rb, gb.numpy())
     _eq(rl, gl.numpy())
+    # the ambiguity mask a block of rows at a time (the last block
+    # ragged) is the JAX package's too
+    for rows in (1, 5, Rp):
+        _eq(ref[4], T.amb_bits(*(_t(a) for a in (
+            votes, ins_tot, het_u8, bank_rows, qlen)), rows=rows).numpy())
 
 
 def test_argmax_takes_first_max():

@@ -421,7 +421,8 @@ def test_mesh_assembly_end_to_end(tmp_path, monkeypatch):
     8-shard mesh, the JAX package with mesh_devices=0 (its 8-device
     mesh) and the port with no mesh give byte-identical outputs; the
     read rows (LPT) and window slot maps of every routed pass equal the
-    JAX package's."""
+    JAX package's; on the mesh, the reads with an ambiguity cluster took
+    their host DAG pass from traceback columns gathered on the shards."""
     reads = _e2e_reads()
     names = [f"r{i}" for i in range(len(reads))]
     jcalls = _capture(monkeypatch, JD.DeviceEC, "_route_windows", True)
@@ -434,6 +435,9 @@ def test_mesh_assembly_end_to_end(tmp_path, monkeypatch):
         output_prefix=str(tmp_path / "mesh"), n_rounds_ec=1,
         ignore_bin=True), device="cpu", mesh=CPU8)
     assert TP.STATS["mesh_rounds"] == 1
+    assert TP.STATS["host_dag_reads"] > 0
+    assert TP.STATS["host_dag_fallback_reads"] == 0
+    assert TD.STATS["dag_gather_windows"] > 0
     assemble(ReadStore.from_arrays(names, reads), HifiasmConfig(
         output_prefix=str(tmp_path / "one"), n_rounds_ec=1,
         ignore_bin=True), device="cpu")

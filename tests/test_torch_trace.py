@@ -53,6 +53,7 @@ FEEDS = {
     "ec.prep": [("D", "host_s")],
     "ec.package": [],                # with ec.prep in host_s
     "ec.vote": [("D", "vote_s")],
+    "ec.dag_gather": [("D", "dag_gather_s")],
     "ec.consensus": [("P", "consensus_s")],
 }
 PAIRS = {"ec.L1": ["ec.L1", "ec.L1_retry"],
