@@ -32,7 +32,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 3c. the EC vote kernel (csrc/vote_scatter.cu) in its L4 form on K1's
    tracebacks of those windows, placed on 128 read rows of 16,384
    columns: accumulators and dropped count bit-equal to its plain
-   version and to the spare-slot ``index_add_`` route the CPU runs;
+   version and to a spare-slot ``index_add_`` route;
    the kernel's time beside its bytes bound, the plain version's and
    that of ``index_add_`` (``library_ms``), and its occupancy;
 4. the main path end to end on the card: a synthetic 4 Mb genome, HiFi
@@ -571,18 +571,19 @@ def _vote_accs(dev):
             for k in (5, 1, 4, 9)]
 
 
-def _index_add_route(accs, tb, ic, ib, q_row, q_ws, xlen, qlen_w, mask,
-                     tally):
-    """The L4 votes as the CPU route computes them (ec/device_ec.py
-    ``cis_votes_add`` on the CPU: ``index_add_`` with the masked entries
-    sent to each accumulator's spare last slot), here on the card."""
-    import hifiasm_tpu_torch.ec.device_ec as D
+def _index_add_route(accs, tb, ic, ib, q_row, q_ws, xlen, qlen_w, mask):
+    """The L4 votes as plain ``index_add_`` calls, the library route the
+    kernel is timed beside: the masked entries go to each accumulator's
+    spare last slot, which counts them."""
+    import torch
+
     from hifiasm_tpu_torch.ops.vote_scatter import cis_entries
 
     for acc, idx, keep in cis_entries(*accs, VOTE_L, tb, ic, ib, q_row, q_ws,
                                       xlen, qlen_w, mask):
-        D._scatter_count(acc, idx, keep, tally)
-    tally.close(*accs)
+        idx = torch.where(keep, idx, torch.full_like(idx, acc.numel() - 1))
+        idx = idx.reshape(-1)
+        acc.index_add_(0, idx, torch.ones_like(idx, dtype=acc.dtype))
 
 
 def phase_votes(k1_out, prob):
@@ -591,7 +592,6 @@ def phase_votes(k1_out, prob):
     accumulators and dropped counts), then timed beside its bound."""
     import torch
 
-    import hifiasm_tpu_torch.ec.device_ec as D
     from hifiasm_tpu_torch.ops import cuda_build
     from hifiasm_tpu_torch.ops import vote_scatter as V
 
@@ -603,17 +603,18 @@ def phase_votes(k1_out, prob):
     outs = {}
     for tag in ("kernel", "plain", "index_add"):
         accs = _vote_accs(dev)
-        tally = D.VoteTally(dev)
         if tag == "index_add":
-            _index_add_route(accs, *args, tally)
-        else:
-            fn = V.cis_votes if tag == "kernel" else V.cis_votes_torch
-            fn(*accs, VOTE_L, *args, tally.given(4 * tb.numel()))
-        torch.cuda.synchronize()
-        if tag == "index_add":
+            _index_add_route(accs, *args)
+            dropped = sum(int(a[-1]) for a in accs)
             for a in accs:        # the spare slots held the drops
                 a[-1] = 0
-        outs[tag] = (accs, int(tally.dropped))
+        else:
+            fn = V.cis_votes if tag == "kernel" else V.cis_votes_torch
+            d = torch.zeros((), dtype=torch.int64, device=dev)
+            fn(*accs, VOTE_L, *args, d)
+            dropped = int(d)
+        torch.cuda.synchronize()
+        outs[tag] = (accs, dropped)
     if V.cis_votes.launches == saved:
         raise AssertionError("cis_votes launched no vote kernel")
     names = ("votes", "ins_tot", "ins_bc", "ins_lc")
@@ -640,8 +641,7 @@ def phase_votes(k1_out, prob):
     ms = _cuda_ms(kernel, 5, 10)
     plain_ms = _cuda_ms(lambda: V.cis_votes_torch(*accs, VOTE_L, *args), 3)
     lib_accs = _vote_accs(dev)
-    library_ms = _cuda_ms(lambda: _index_add_route(
-        lib_accs, *args, D.VoteTally(dev)), 3)
+    library_ms = _cuda_ms(lambda: _index_add_route(lib_accs, *args), 3)
     V.cis_votes.launches = saved     # comparison launches do not count
     # bytes the function needs: the plane bytes of the columns it reads
     # (tb of every kept-window column in range, ic of those, ib where

@@ -165,7 +165,7 @@ def assemble(store: ReadStore, cfg: HifiasmConfig,
             # reads -> <prefix>.het_cnt.log (~print_het_cnt_log,
             # Assembly.cpp:968-978; counted on the last round there)
             from hifiasm_tpu_torch.ec.pipeline import het_cnt_pass
-            hc = het_cnt_pass(store, cfg)
+            hc = het_cnt_pass(store, cfg, device=dev, mesh=mesh)
             with open(f"{cfg.output_prefix}.het_cnt.log", "w") as f:
                 for i in range(store.n_reads):
                     f.write(f">{store.names[i]}\t{int(hc[i])}\n")

@@ -9,25 +9,25 @@ planes, padded with 4).  Per batch of reads:
                (ops/banded_tb.py); tracebacks stay on the device; one
                boundary-retry round (window_align.retry_plan)
   L2 rawcnt    allele counts per (read, pos) over accepted windows
-  het          het sites + alternate alleles (ec/phase.het_from_counts,
-               integer form)
+  het          het sites + alternate alleles (the JAX package's
+               ec/phase.het_from_counts, integer form)
   L3 hetagree  per-overlap agreement at het sites -> cis/trans
   L4 cisvotes  consensus votes + insertion aggregates over cis windows,
                plus the window-seam insertion votes
-  L5 decide    consensus_decide + ambiguity mask; only PACKED bit and
+  L5 decide    column decisions + ambiguity mask (the JAX package's
+               consensus_decide, _ambiguous_mask); only PACKED bit and
                nibble planes come back to the host
 
 The JAX package aggregates with one-hot int8 matmuls and log-shift rolls,
 which work around the TPU's slow scatters.  Here every aggregation is an
 integer scatter-add at the absolute position ws + i.  Integer adds
 commute, so the sums do not depend on the order and stay bit-identical
-with the JAX package and the host rules.  On a CUDA device the votes of
-L2, L4 and the seams go through the vote kernel (ops/vote_scatter.py),
-which adds only the kept entries and counts the dropped ones on the
-device.  On the CPU they are ``index_add_`` calls in which masked entries
-go to one spare slot past the end of each accumulator; those spare slots
-count the dropped entries (``VoteTally``).  Every other aggregation is an
-``index_add_`` with a spare slot on both devices.
+with the JAX package and the host rules.  The votes of L2, L4 and the
+seams go through ops/vote_scatter.py on every device: the vote kernel on
+a CUDA device, its plain version on the CPU.  Both add only the kept
+entries and add the dropped ones to a count on the device
+(``VoteTally``).  Every other aggregation is an ``index_add_`` in which
+masked entries go to one spare slot past the end of the accumulator.
 
 Reference scope covered: gen_hc_r_alin_ea (ecovlp.cpp:2810), rphase_hc
 (:3301), wcns_gen (:2293).
@@ -58,7 +58,7 @@ E_BAND = THRESHOLD_MAX_SIZE          # one static band for all windows
 
 # windows per L1 launch and per aggregation step: bounds K1's checkpoint
 # scratch (128 MB at XL = 775) and the [chunk, XL] index temporaries of
-# L3 (and, on the CPU, of the votes)
+# L3 (and, on the CPU, of the plain votes)
 CHUNK_CUDA = 65536
 CHUNK_CPU = 8192
 
@@ -148,51 +148,18 @@ def gather_windows(bank: DeviceBank, XL: int, e: int, q_rid, q_ws, xlen,
 class VoteTally:
     """The entries one device's vote scatter-adds are given in a batch
     (``adds``, from shapes on the host) and those dropped, in ``dropped``
-    on the device, unfetched.  On a CUDA device the vote kernel adds its
-    dropped entries to ``dropped`` itself (``given``), and the spare slots
-    stay 0.  On the CPU each dropped entry adds 1 to its accumulator's
-    spare last slot, which ``close`` sums into ``dropped``.  A spare slot
-    is int32: before the entries given to it since it was last emptied
-    could pass 2**31 - 1 (a batch of over 2.77 M windows of 775 columns),
-    it is emptied into ``dropped``, which is int64."""
-
-    LIMIT = 2 ** 31 - 1
+    on the device, unfetched: the kernel and its plain version both add
+    their dropped entries to it."""
 
     def __init__(self, device):
         self.adds = 0
         self.dropped = torch.zeros((), dtype=torch.int64, device=device)
-        self._since: Dict[int, int] = {}
-
-    def add(self, acc_flat: torch.Tensor, n: int) -> None:
-        key = acc_flat.data_ptr()
-        if self._since.get(key, 0) + n > self.LIMIT:
-            self.close(acc_flat)
-            acc_flat[-1] = 0
-        self._since[key] = self._since.get(key, 0) + n
-        self.adds += n
 
     def given(self, n: int) -> torch.Tensor:
-        """Counts ``n`` entries given to a vote kernel launch; returns the
-        counter the kernel adds the dropped ones to."""
+        """Counts ``n`` entries given to a vote scatter-add; returns the
+        counter it adds the dropped ones to."""
         self.adds += n
         return self.dropped
-
-    def close(self, *accs: torch.Tensor) -> None:
-        for acc_flat in accs:
-            self.dropped += acc_flat[-1]
-            self._since.pop(acc_flat.data_ptr(), None)
-
-
-def _scatter_count(acc_flat: torch.Tensor, idx: torch.Tensor,
-                   keep: torch.Tensor, tally: Optional[VoteTally] = None
-                   ) -> None:
-    """acc_flat[idx] += 1 where keep; dropped entries land in the spare
-    last slot.  ``tally`` counts the entries.  The CPU's vote scatter."""
-    dump = acc_flat.numel() - 1
-    idx = torch.where(keep, idx, torch.full_like(idx, dump)).reshape(-1)
-    if tally is not None:
-        tally.add(acc_flat, idx.numel())
-    acc_flat.index_add_(0, idx, torch.ones_like(idx, dtype=acc_flat.dtype))
 
 
 def _dropped(tally: Optional[VoteTally], n: int) -> Optional[torch.Tensor]:
@@ -203,13 +170,8 @@ def raw_counts_add(cnt: torch.Tensor, L: int, tb, q_row, q_ws, xlen,
                    qlen_w, w_ok, tally: Optional[VoteTally] = None) -> None:
     """cnt [5*Rp*L + 1] int32 += per-allele counts (port of
     _raw_counts_scan): class tb in 0..4 at (row, ws + i)."""
-    if tb.device.type != "cpu":
-        vote_scatter.raw_counts(cnt, L, tb, q_row, q_ws, xlen, qlen_w, w_ok,
-                                _dropped(tally, tb.numel()))
-        return
-    for acc, idx, keep in vote_scatter.raw_entries(cnt, L, tb, q_row, q_ws,
-                                                   xlen, qlen_w, w_ok):
-        _scatter_count(acc, idx, keep, tally)
+    vote_scatter.raw_counts(cnt, L, tb, q_row, q_ws, xlen, qlen_w, w_ok,
+                            _dropped(tally, tb.numel()))
 
 
 def het_agree_add(n_same: torch.Tensor, n_flip: torch.Tensor,
@@ -243,15 +205,9 @@ def cis_votes_add(votes, ins_tot, ins_bc, ins_lc, L: int, tb, ic, ib,
     """votes [5*Rp*L+1], ins_tot [Rp*L+1], ins_bc [4*Rp*L+1],
     ins_lc [9*Rp*L+1] int32 += cis-window votes (port of
     _cis_votes_scan)."""
-    if tb.device.type != "cpu":
-        vote_scatter.cis_votes(votes, ins_tot, ins_bc, ins_lc, L, tb, ic, ib,
-                               q_row, q_ws, xlen, qlen_w, w_cis,
-                               _dropped(tally, 4 * tb.numel()))
-        return
-    for acc, idx, keep in vote_scatter.cis_entries(
-            votes, ins_tot, ins_bc, ins_lc, L, tb, ic, ib, q_row, q_ws, xlen,
-            qlen_w, w_cis):
-        _scatter_count(acc, idx, keep, tally)
+    vote_scatter.cis_votes(votes, ins_tot, ins_bc, ins_lc, L, tb, ic, ib,
+                           q_row, q_ws, xlen, qlen_w, w_cis,
+                           _dropped(tally, 4 * tb.numel()))
 
 
 def seam_add(ins_tot, ins_bc, ins_lc, Rp: int, L: int, rowc, colc, base,
@@ -265,16 +221,12 @@ def seam_add(ins_tot, ins_bc, ins_lc, Rp: int, L: int, rowc, colc, base,
     subs = ((ins_tot, pos, okm), (ins_bc, base * RL + pos, okm),
             (ins_lc, glen.clamp(max=8) * RL + pos, okm & (glen >= 0)))
     for acc, idx, keep in subs:
-        if acc.device.type != "cpu":
-            vote_scatter.masked_add(acc, idx, keep,
-                                    _dropped(tally, idx.numel()))
-        else:
-            _scatter_count(acc, idx, keep, tally)
+        vote_scatter.masked_add(acc, idx, keep, _dropped(tally, idx.numel()))
 
 
 def classify(n_same, n_flip, het_cnt, ov_qrow, usable) -> torch.Tensor:
-    """classify_overlaps (ec/phase.py:77): 1 cis, 2 trans, 0 unusable;
-    min_flip is 1 on reads with >= 3 het sites, else 2."""
+    """classify_overlaps (the JAX package's ec/phase.py): 1 cis, 2 trans,
+    0 unusable; min_flip is 1 on reads with >= 3 het sites, else 2."""
     min_flip = torch.where(het_cnt[ov_qrow] >= 3, 1, 2)
     trans = usable & (n_flip > n_same) & (n_flip >= min_flip)
     return torch.where(usable, torch.where(trans, 2, 1), 0).to(torch.uint8)
@@ -287,8 +239,9 @@ def cis_mask(okm, ov, is_match) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # het detection + consensus decisions; thresholds are the integer-exact
 # forms of the host rules (x > 0.500001*cov <=> 2x > cov, x > 0.25*cov
-# <=> 4x > cov), bit-identical with ec/phase.het_from_counts and
-# ec/consensus.consensus_decide / _ambiguous_mask
+# <=> 4x > cov), bit-identical with the JAX package's
+# ec/phase.het_from_counts and ec/consensus.consensus_decide /
+# _ambiguous_mask
 
 
 def pack_bits(b: torch.Tensor) -> torch.Tensor:
@@ -377,8 +330,9 @@ AMB_TEMP_BYTES = 64 << 20
 
 
 def amb_plane(votes, ins_tot, het_u8, bank_rows, qlen_rows) -> torch.Tensor:
-    """_ambiguous_mask over the batch, [Rp, L] bool: the ambiguity mask of
-    ``decide_planes``, computed without its [5, Rp, L] stacks."""
+    """The JAX package's _ambiguous_mask over the batch, [Rp, L] bool:
+    the ambiguity mask of ``decide_planes``, computed without its
+    [5, Rp, L] stacks."""
     L = bank_rows.shape[1]
     pos = torch.arange(L, device=votes.device)[None, :]
     in_r = pos < qlen_rows[:, None]
@@ -411,10 +365,10 @@ def amb_bits(votes, ins_tot, het_u8, bank_rows, qlen_rows,
 
 def decide_planes(votes, ins_tot, ins_bc, ins_lc, het_u8, bank_rows,
                   qlen_rows, amb_pk=None):
-    """consensus_decide + _ambiguous_mask (port of _decide_planes);
-    returns the packed (subw, pass_ins, ins base, ins len - 1, amb).
-    ``amb_pk``: the batch's packed ambiguity mask, if it is already
-    there."""
+    """The JAX package's consensus_decide + _ambiguous_mask (port of its
+    _decide_planes); returns the packed (subw, pass_ins, ins base,
+    ins len - 1, amb).  ``amb_pk``: the batch's packed ambiguity mask, if
+    it is already there."""
     Rp, L = bank_rows.shape
     pos = torch.arange(L, device=votes.device)[None, :]
     in_r = pos < qlen_rows[:, None]
@@ -855,12 +809,11 @@ class DeviceEC:
                     for tb, ic, ib, qrow, ws, xlen, qlen_w, use, ov in st:
                         raw_counts_add(cnt, L, tb, qrow, ws, xlen, qlen_w,
                                        use, tly)
-                    tly.close(cnt)
 
-            # het detection on the device (ec/phase.het_from_counts,
-            # integer form): only packed het bits + 2-bit alts come back.
-            # Rows no read holds (mesh padding) have length 0: nothing is
-            # decided there.
+            # het detection on the device (the JAX package's
+            # ec/phase.het_from_counts, integer form): only packed het
+            # bits + 2-bit alts come back.  Rows no read holds (mesh
+            # padding) have length 0: nothing is decided there.
             rid_rows = np.zeros(Rp, np.int64)
             row_valid = np.zeros(Rp, bool)
             rid_rows[rows] = [rid for rid, _ in read_ovs]
@@ -936,7 +889,6 @@ class DeviceEC:
                             seam_add(ins_tot, ins_bc, ins_lc, rb, L,
                                      *(self._t(a, dev=dev) for a in mine),
                                      im, tly)
-                    tly.close(votes, ins_tot, ins_bc, ins_lc)
                     acc.append((votes, ins_tot, ins_bc, ins_lc))
             # ---- L5, first the ambiguity mask and cis/trans: they say
             # which window results the host DAG pass will read, while
@@ -1004,12 +956,12 @@ class DeviceEC:
 
     def _seams(self, j_ovid, j_ws, j_qrow, j_trid, j_trev, w_ok, y0,
                ys_all, yn_all) -> Optional[np.ndarray]:
-        """Window-SEAM insertion evidence (mirrors WindowBatcher.
-        _inject_seams): [5, n] rows, columns, bases, gap lengths and
-        overlap ids of the seams between consecutive accepted windows of
-        an overlap whose gap is one homopolymer run of 1-8 bases on the
-        target; None without one.  ``y0``: each window's final y start
-        less the band."""
+        """Window-SEAM insertion evidence (mirrors the JAX package's
+        WindowBatcher._inject_seams): [5, n] rows, columns, bases, gap
+        lengths and overlap ids of the seams between consecutive accepted
+        windows of an overlap whose gap is one homopolymer run of 1-8
+        bases on the target; None without one.  ``y0``: each window's
+        final y start less the band."""
         if len(j_ovid) < 2:
             return None
         same = (j_ovid[1:] == j_ovid[:-1]) & \

@@ -1,11 +1,12 @@
 """EC votes: masked integer scatter-adds into the vote accumulators.
 
 The wrappers ``raw_counts`` (L2), ``cis_votes`` (L4) and ``masked_add``
-(the window seams) are what ec/device_ec.py calls on a CUDA device.  For
-CUDA tensors they launch the hand-written kernel ``csrc/vote_scatter.cu``
-(it replaces no TPU kernel: the JAX package aggregates with one-hot int8
-matmuls and log-shift rolls).  For CPU tensors they run the plain PyTorch
-versions ``*_torch`` of this module.  There is no fallback between the
+(the window seams) are what ec/device_ec.py calls on every device, and
+``_route`` is the one place that picks the form.  For CUDA tensors they
+launch the hand-written kernel ``csrc/vote_scatter.cu`` (it replaces no
+TPU kernel: the JAX package aggregates with one-hot int8 matmuls and
+log-shift rolls).  For CPU tensors they run the plain PyTorch versions
+``*_torch`` of this module.  There is no fallback between the
 two: a CUDA tensor either goes through the kernel or raises.
 
 Every form adds 1 to an int32 accumulator entry for each kept entry and

@@ -1,7 +1,8 @@
 """The port's debug surfaces against the JAX package's, on the CPU:
 ``-e/--ex-list`` (``<prefix>.trace.tsv``, and ``--ex-iter``'s
 ``<prefix>.extract.paf``) and ``--dbg-het-cnt``
-(``<prefix>.het_cnt.log``, from the host phase pass).  The port runs
+(``<prefix>.het_cnt.log``: the JAX package's from its host phase
+pass, the port's from DeviceEC's het sites).  The port runs
 through its CLI with ``--device cpu``; the JAX package through
 ``assemble`` on its device-EC path (align_engine="jax",
 mesh_devices=1)."""

@@ -10,7 +10,8 @@ votes.
   the corrected reads and ``bp.p_ctg.gfa`` equal the JAX package's, byte
   for byte, in one process (``-t 1``) and in three workers (``-t 3``).
 - The tracebacks a read's gathered columns rebuild (pass-1 and retry
-  windows, seam insertions) equal ``align_overlaps``' over those columns,
+  windows, seam insertions) equal the JAX package's host alignment
+  (``hifiasm_tpu.ec.window_align.align_overlaps``) over those columns,
   and every cis overlap implies the same strings over every cluster
   range."""
 
@@ -19,17 +20,17 @@ import pytest
 
 import hifiasm_tpu_torch.ec.consensus as C
 import hifiasm_tpu_torch.ec.device_ec as D
-import hifiasm_tpu_torch.ec.phase as PH
 import hifiasm_tpu_torch.ec.pipeline as P
 import hifiasm_tpu_torch.ec.window_align as WA
 import hifiasm_tpu_torch.overlap.anchors as AN
 from chip_smoke import ont_store
 from hifiasm_tpu.assemble import assemble as jax_assemble
 from hifiasm_tpu.config import HifiasmConfig as JConfig
+from hifiasm_tpu.ec.window_align import align_overlaps as jax_align_overlaps
 from hifiasm_tpu.io.readstore import ReadStore as JStore
 from hifiasm_tpu_torch.assemble import assemble
 from hifiasm_tpu_torch.config import HifiasmConfig
-from hifiasm_tpu_torch.io.readstore import ReadStore
+from hifiasm_tpu_torch.io.readstore import ReadStore, revcomp_codes
 from hifiasm_tpu_torch.utils import trace
 from tests.synth import make_genome, sample_reads
 
@@ -81,10 +82,7 @@ def _forbid_host_rerun(mp):
             return orig(*a, **kw)
         mp.setattr(mod, name, f)
 
-    for mod, name in ((AN, "chain_many"), (AN, "collect_anchors_many"),
-                      (WA, "align_overlaps"), (WA.WindowBatcher, "flush"),
-                      (PH, "phase_overlaps"), (P, "phase_overlaps"),
-                      (C, "windowed_consensus")):
+    for mod, name in ((AN, "chain_many"), (AN, "collect_anchors_many")):
         guard(mod, name)
     orig = P._host_dags
 
@@ -168,9 +166,9 @@ def _every_column(mp):
 
 def _device_ec(case, mp):
     """(store, cfg, read_ovs) of a case, with overlaps whose hits are on
-    the host (so that ``align_overlaps`` can re-run a read); then
-    DeviceEC with the gather.  Returns those and (outs, cns_in, the
-    gather's arguments)."""
+    the host (so that the JAX package's ``align_overlaps`` can re-run a
+    read); then DeviceEC with the gather.  Returns those and (outs,
+    cns_in, the gather's arguments)."""
     if case == "retry_seam":
         cfg = HifiasmConfig(mesh_devices=1)
         store, read_ovs = _retry_seam_case()
@@ -200,13 +198,18 @@ def _device_ec(case, mp):
                                   "retry_seam"])
 def test_gathered_columns_rebuild_host_tracebacks(monkeypatch, case):
     """Each read's tracebacks rebuilt from its gathered K1 columns equal
-    the host path's (``align_overlaps``) over those columns, seam
-    insertions included, and every cis overlap implies the host path's
-    string over every cluster range: the ONT store's own clusters; the
-    ONT store with every column ambiguous (whole reads, seams among
-    them); a read whose two retried windows meet at a seam insertion."""
+    the JAX package's host alignment (``align_overlaps``) over those
+    columns, seam insertions included, and every cis overlap implies the
+    JAX package's string over every cluster range: the ONT store's own
+    clusters; the ONT store with every column ambiguous (whole reads,
+    seams among them); a read whose two retried windows meet at a seam
+    insertion."""
     store, cfg, read_ovs, outs, cns_in, seen = _device_ec(case, monkeypatch)
-    get_target = P._TargetCache(store)
+
+    def get_target(tid, rev):
+        codes = store.get_codes(tid)
+        return revcomp_codes(codes) if rev else codes
+
     n_reads = n_strings = n_seams = 0
     built = {}
     for rid, ov in read_ovs:
@@ -217,8 +220,9 @@ def test_gathered_columns_rebuild_host_tracebacks(monkeypatch, case):
         n_reads += 1
         q = store.get_codes(rid)
         got = eco.dag.tracebacks(ov)
-        want = WA.align_overlaps(q, ov, get_target, e_rate=cfg.max_ov_diff_ec,
-                                 wl=cfg.ec_window)
+        want = jax_align_overlaps(q, ov, get_target,
+                                  e_rate=cfg.max_ov_diff_ec,
+                                  wl=cfg.ec_window)
         cols = WA._alloc_tracebacks(ov)
         WA.scatter_segments(cols, eco.dag.o, eco.dag.col, eco.dag.n,
                             eco.dag.src, *(np.ones_like(eco.dag.tb),) * 3)

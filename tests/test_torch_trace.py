@@ -198,40 +198,47 @@ def test_consensus_reads(request, run):
     assert p_stats["host_dag_s"] <= p_stats["consensus_s"]
 
 
-@pytest.mark.parametrize("limit", [None, 5000])
-def test_vote_counters_count_the_masks(monkeypatch, limit):
+@pytest.mark.parametrize("chunk", [None, 256])
+def test_vote_counters_count_the_masks(monkeypatch, chunk):
     """vote_adds and vote_dropped_adds on one CPU batch equal a direct
-    count of the keep masks given to the scatter-adds; with a small
-    LIMIT the spare slots are emptied into the int64 total many times,
-    and the counts and the decisions do not change."""
+    count of the keep masks given to the plain vote scatter-adds
+    (vote_scatter.masked_add_torch, through which every CPU vote passes);
+    with a small CHUNK_CPU the votes come in many aggregation steps, and
+    the counts and the decisions do not change."""
+    from hifiasm_tpu_torch.ops import vote_scatter as V
     from tests.test_torch_device_ec import _ec_inputs
 
     store, _, read_ovs, cfg = _ec_inputs()
-    seen = {"adds": 0, "dropped": 0}
-    orig = D._scatter_count
 
-    def counted(acc_flat, idx, keep, tally=None):
-        seen["adds"] += idx.numel()
-        seen["dropped"] += int((~keep).sum())
-        orig(acc_flat, idx, keep, tally)
+    def run():
+        seen = {"adds": 0, "dropped": 0}
+        orig = V.masked_add_torch
 
-    monkeypatch.setattr(D, "_scatter_count", counted)
-    if limit:
-        monkeypatch.setattr(D.VoteTally, "LIMIT", limit)
-    trace.reset()
-    _, cns_in = D.DeviceEC(store, wl=cfg.ec_window,
-                           e_rate=cfg.max_ov_diff_ec,
-                           device="cpu").process(read_ovs)
-    assert D.STATS["vote_adds"] == seen["adds"] > 0
-    assert D.STATS["vote_dropped_adds"] == seen["dropped"] > 0
-    assert seen["dropped"] < seen["adds"]
-    if limit:
-        monkeypatch.setattr(D.VoteTally, "LIMIT", 2 ** 31 - 1)
-        _, ref = D.DeviceEC(store, wl=cfg.ec_window,
-                            e_rate=cfg.max_ov_diff_ec,
-                            device="cpu").process(read_ovs)
-        for rid, planes in ref.items():
-            for a, b in zip(planes, cns_in[rid]):
+        def counted(acc, idx, keep, dropped=None):
+            seen["adds"] += idx.numel()
+            seen["dropped"] += int((~keep).sum())
+            orig(acc, idx, keep, dropped)
+
+        with monkeypatch.context() as m:
+            m.setattr(V, "masked_add_torch", counted)
+            trace.reset()
+            _, cns_in = D.DeviceEC(store, wl=cfg.ec_window,
+                                   e_rate=cfg.max_ov_diff_ec,
+                                   device="cpu").process(read_ovs)
+        assert D.STATS["vote_adds"] == seen["adds"] > 0
+        assert D.STATS["vote_dropped_adds"] == seen["dropped"] > 0
+        assert seen["dropped"] < seen["adds"]
+        return cns_in, seen
+
+    cns_in, seen = run()
+    if chunk:
+        monkeypatch.setattr(D, "CHUNK_CPU", chunk)
+        got, seen_c = run()
+        assert D.STATS["windows"] > 4 * chunk
+        assert seen_c == seen
+        assert sorted(got) == sorted(cns_in)
+        for rid, planes in cns_in.items():
+            for a, b in zip(planes, got[rid]):
                 np.testing.assert_array_equal(a, b)
 
 

@@ -1,7 +1,9 @@
 """The EC vote kernel (hifiasm_tpu_torch/ops/vote_scatter.py,
-csrc/vote_scatter.cu) against its plain version and against the CPU's
-spare-slot scatter of ec/device_ec.py, tolerance zero: the accumulators
-and the dropped counts are integers and must be equal bit for bit.
+csrc/vote_scatter.cu) against its plain version, and ec/device_ec.py's
+vote functions against a spare-slot ``index_add_`` oracle kept here
+(masked entries go to the accumulator's spare last slot, which counts
+them), tolerance zero: the accumulators and the dropped counts are
+integers and must be equal bit for bit.
 
 The CPU cases run everywhere.  The ``cuda``-marked cases skip without a
 card; on one they run with ``python -m pytest --noconftest -m cuda
@@ -78,9 +80,9 @@ def _to(d, dev):
     return {k: v.to(dev) for k, v in d.items()}
 
 
-def _spare_route(form, d, rows, L, dev):
-    """device_ec's functions with a VoteTally: the kernel on a card, the
-    spare-slot index_add_ on the CPU.  Returns (accumulators, tally)."""
+def _device_ec_route(form, d, rows, L, dev):
+    """device_ec's vote functions with a VoteTally: the kernel on a card,
+    the plain version on the CPU.  Returns (accumulators, tally)."""
     tally = D.VoteTally(dev)
     if form == "L2":
         acc = _accs(form, rows, L, dev)
@@ -94,8 +96,45 @@ def _spare_route(form, d, rows, L, dev):
         acc = _accs("L4", rows, L, dev)[1:]
         D.seam_add(*acc, rows, L, d["rowc"], d["colc"], d["base"], d["glen"],
                    d["ov"], d["is_match"], tally)
-    tally.close(*acc)
     return acc, tally
+
+
+def _seam_entries(d, rows, L, acc):
+    """(accumulator, flat index, keep) of each seam_add sub-scatter."""
+    RL = rows * L
+    okm = (d["is_match"][d["ov"]] == 1) & (d["rowc"] >= 0) & \
+        (d["rowc"] < rows) & (d["colc"] >= 0) & (d["colc"] < L) & \
+        (d["base"] >= 0) & (d["base"] < 4)
+    pos = d["rowc"] * L + d["colc"]
+    return ((acc[0], pos, okm), (acc[1], d["base"] * RL + pos, okm),
+            (acc[2], d["glen"].clamp(max=8) * RL + pos,
+             okm & (d["glen"] >= 0)))
+
+
+def _spare_slot_oracle(form, d, rows, L):
+    """The votes as plain ``index_add_`` calls on CPU tensors: each
+    sub-scatter adds ones, and its masked entries go to the spare last
+    slot of the accumulator.  Returns (accumulators, entries given,
+    entries dropped: the spare slots' sum)."""
+    cpu = torch.device("cpu")
+    if form == "L2":
+        acc = _accs(form, rows, L, cpu)
+        subs = V.raw_entries(acc[0], L, d["tb"], d["q_row"], d["q_ws"],
+                             d["xlen"], d["qlen_w"], d["mask"])
+    elif form == "L4":
+        acc = _accs(form, rows, L, cpu)
+        subs = V.cis_entries(*acc, L, d["tb"], d["ic"], d["ib"], d["q_row"],
+                             d["q_ws"], d["xlen"], d["qlen_w"], d["mask"])
+    else:
+        acc = _accs("L4", rows, L, cpu)[1:]
+        subs = _seam_entries(d, rows, L, acc)
+    adds = 0
+    for a, idx, keep in subs:
+        dump = a.numel() - 1
+        idx = torch.where(keep, idx, torch.full_like(idx, dump)).reshape(-1)
+        adds += idx.numel()
+        a.index_add_(0, idx, torch.ones_like(idx, dtype=a.dtype))
+    return acc, adds, sum(int(a[-1]) for a in acc)
 
 
 def _wrapper(form, d, rows, L, dev, plain=False):
@@ -151,32 +190,19 @@ def test_wrapper_runs_plain_on_cpu(form):
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("N,XL", [(300, 40), (97, 13)])
 def test_plain_matches_spare_slot_route(form, N, XL):
-    """The plain version of the kernel adds what the CPU's spare-slot
-    scatter adds, and drops what the spare slots count; its own spare
-    slots stay 0."""
+    """device_ec's vote functions on the CPU (the plain version) add what
+    the spare-slot index_add_ oracle adds, count the entries it is given
+    and drop what its spare slots count; their own spare slots stay 0."""
     d, rows, L = _case(form, 2 + N, N, XL)
-    cpu = torch.device("cpu")
-    ref, tally = _spare_route(form, d, rows, L, cpu)
-    if form == "seam":
-        acc = _accs("L4", rows, L, cpu)[1:]
-        dropped = torch.zeros((), dtype=torch.int64)
-        RL = rows * L
-        okm = (d["is_match"][d["ov"]] == 1) & (d["rowc"] >= 0) & \
-            (d["rowc"] < rows) & (d["colc"] >= 0) & (d["colc"] < L) & \
-            (d["base"] >= 0) & (d["base"] < 4)
-        pos = d["rowc"] * L + d["colc"]
-        for a, idx, keep in ((acc[0], pos, okm),
-                             (acc[1], d["base"] * RL + pos, okm),
-                             (acc[2], d["glen"].clamp(max=8) * RL + pos,
-                              okm & (d["glen"] >= 0))):
-            V.masked_add_torch(a, idx, keep, dropped)
-    else:
-        acc, dropped = _wrapper(form, d, rows, L, cpu, plain=True)
+    ref, adds, dropped = _spare_slot_oracle(form, d, rows, L)
+    n0 = _launches()
+    acc, tally = _device_ec_route(form, d, rows, L, torch.device("cpu"))
+    assert _launches() == n0
     for a, r in zip(acc, ref):
         assert torch.equal(a[:-1], r[:-1])
         assert int(a[-1]) == 0
-    assert int(dropped) == int(tally.dropped) > 0
-    assert tally.adds > int(tally.dropped)
+    assert int(tally.dropped) == dropped > 0
+    assert tally.adds == adds > dropped
 
 
 def test_wrapper_checks():
@@ -214,8 +240,9 @@ def test_wrapper_checks():
 def test_kernel_matches_plain_on_card(form, N, XL):
     """The kernel on a full CUDA chunk and on ragged batches: its
     accumulators and dropped count equal the plain version's on .cpu()
-    copies, and device_ec's kernel route equals the CPU's spare-slot
-    route (spare slots 0 on the card, the same adds and drops)."""
+    copies, and device_ec's vote functions on the card equal the
+    spare-slot oracle (spare slots 0 on the card, the same adds and
+    drops)."""
     dev = _card()
     rows, L = (128, 16384) if N == D.CHUNK_CUDA else (24, 2048)
     d, rows, L = _case(form, 40 + N + XL, N, XL, rows, L)
@@ -227,13 +254,13 @@ def test_kernel_matches_plain_on_card(form, N, XL):
     _same(got, ref)
     assert int(dg) == int(dr) > 0
 
-    got, tg = _spare_route(form, _to(d, dev), rows, L, dev)
-    ref, tr = _spare_route(form, d, rows, L, torch.device("cpu"))
+    got, tg = _device_ec_route(form, _to(d, dev), rows, L, dev)
+    ref, adds, dropped = _spare_slot_oracle(form, d, rows, L)
     for a, r in zip(got, ref):
         assert torch.equal(a[:-1].cpu(), r[:-1])
         assert int(a[-1]) == 0
-    assert int(tg.dropped) == int(tr.dropped) > 0
-    assert tg.adds == tr.adds
+    assert int(tg.dropped) == dropped > 0
+    assert tg.adds == adds
 
 
 def _ec_store():
@@ -264,9 +291,9 @@ def _ec_store():
 
 @pytest.mark.cuda
 def test_device_ec_on_card_matches_cpu():
-    """DeviceEC.process on the card (vote kernel) and on the CPU
-    (spare-slot index_add_): the same consensus planes, per-read results
-    and vote counters."""
+    """DeviceEC.process on the card (vote kernel) and on the CPU (its
+    plain version): the same consensus planes, per-read results and vote
+    counters."""
     dev = _card()
     store, read_ovs, cfg = _ec_store()
     runs = {}
