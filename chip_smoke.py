@@ -126,11 +126,15 @@ Phases, in order; any failure raises and the script exits nonzero:
     come from the columns of K1's tracebacks that DeviceEC gathers on
     the card: a small store of the benchmark's human-repeat proxy (40 kb,
     15x HiFi of 6 kb) and ``ont_store`` (with --ont), three EC rounds
-    each, on cuda (a worker a CPU) and on cpu (none): the corrected reads
-    and bp.p_ctg.gfa byte-identical, reads on the host DAG pass in both,
-    none of them without its columns; the gather's counters
+    each, on cuda with the native pass (a thread a CPU), on cuda with
+    the Python pass (``_host_dag``, one read after another) and on cpu
+    with the native pass on one thread: the corrected reads and
+    bp.p_ctg.gfa byte-identical, reads on the host DAG pass in all
+    three, none of them without its columns, every one served natively
+    in the native runs and none in the Python run; the gather's counters
     (``dag_gather_windows``, ``dag_gather_bytes``, ``dag_gather_s``) and
-    the host DAG's are printed as ``{"dag": ...}``.
+    the host DAG's (``host_dag_s`` times the pass) are printed as
+    ``{"dag": ...}``.
 
 Phase 11 runs with ``--ont`` only.  The line before the kernel table
 holds phase 10's times and counts as ``{"device_index": ...}``, the
@@ -976,9 +980,8 @@ def phase_ont_small(out_dir: str):
     """Phase 11b: ``ont_store`` assembled with --ont on cuda and on cpu;
     the four outputs and the corrected reads must be byte-identical, and
     the cuda run must launch K1 and the vote kernel's L2 and L4 forms.
-    The cuda run shares its host DAG re-runs among a worker process a
-    CPU (forked from a process that holds the card), the cpu run keeps
-    them in its own process.  Returns the cuda run's launch counts."""
+    The cuda run's host DAG pass runs on a thread a CPU, the cpu run's
+    on one.  Returns the cuda run's launch counts."""
     from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.config import HifiasmConfig
     from hifiasm_tpu_torch.ops import vote_scatter as V
@@ -1994,54 +1997,72 @@ def phase_build():
 
 def phase_dag(out_dir: str) -> dict:
     """Phase 12: the host DAG pass from traceback columns gathered on the
-    card, on ``proxy_store`` and ``ont_store`` (--ont), cuda (a worker a
-    CPU) against cpu (one process); returns each run's counters."""
+    card, on ``proxy_store`` and ``ont_store`` (--ont): cuda with the
+    native pass (a thread a CPU) and with the Python pass, against cpu
+    (the native pass on one thread); returns each run's counters."""
     import hifiasm_tpu_torch.ec.device_ec as D
     import hifiasm_tpu_torch.ec.pipeline as P
+    from hifiasm_tpu_torch import native
     from hifiasm_tpu_torch.assemble import assemble
     from hifiasm_tpu_torch.config import HifiasmConfig
     from hifiasm_tpu_torch.utils import trace
 
     out = {}
+    ncpu = len(os.sched_getaffinity(0))
+    runs = (("cuda", "cuda", ncpu, True), ("cuda_python", "cuda", ncpu, False),
+            ("cpu", "cpu", 1, True))
     for name, make, kw in (("proxy", proxy_store, {}),
                            ("ont", ont_store,
                             {"is_ont": True, "bf_shift": 37})):
         reads, gfa = {}, {}
-        for dev in ("cuda", "cpu"):
-            pfx = os.path.join(out_dir, f"dag_{name}_{dev}")
+        for run, dev, threads, use_native in runs:
+            pfx = os.path.join(out_dir, f"dag_{name}_{run}")
             trace.reset()
             t0 = time.time()
-            res = assemble(make(), HifiasmConfig(
-                output_prefix=pfx, ignore_bin=True, mesh_devices=1,
-                threads=(os.cpu_count() or 1) if dev == "cuda" else 1,
-                n_rounds_ec=3, **kw), device=dev)
+            dag_native = native.dag_reads_native
+            if not use_native:
+                native.dag_reads_native = lambda reads, threads: None
+            try:
+                res = assemble(make(), HifiasmConfig(
+                    output_prefix=pfx, ignore_bin=True, mesh_devices=1,
+                    threads=threads, n_rounds_ec=3, **kw), device=dev)
+            finally:
+                native.dag_reads_native = dag_native
             c = {k: P.STATS[k] for k in (
                 "ec_rounds", "consensus_reads", "host_dag_reads",
-                "dag_clusters", "host_dag_fallback_reads", "host_dag_s",
-                "consensus_s")}
+                "host_dag_native_reads", "dag_clusters",
+                "host_dag_fallback_reads", "host_dag_s", "consensus_s")}
             c.update({k: D.STATS[k] for k in (
                 "dag_gather_windows", "dag_gather_bytes", "dag_gather_s")})
+            c["threads"] = threads
             c["wall_s"] = time.time() - t0
-            out[f"{name}_{dev}"] = c
-            print(f"[dag] {name} {dev}: {json.dumps(c)}", flush=True)
+            out[f"{name}_{run}"] = c
+            print(f"[dag] {name} {run}: {json.dumps(c)}", flush=True)
             if c["host_dag_reads"] == 0 or c["dag_gather_windows"] == 0:
-                raise AssertionError(f"{name} on {dev}: no read took the "
+                raise AssertionError(f"{name} on {run}: no read took the "
                                      "host DAG pass")
             if c["host_dag_fallback_reads"]:
-                raise AssertionError(f"{name} on {dev}: reads on the host "
+                raise AssertionError(f"{name} on {run}: reads on the host "
                                      "DAG pass without their columns")
-            reads[dev] = [res.store.get_codes(i).tobytes()
+            want = c["host_dag_reads"] if use_native else 0
+            if c["host_dag_native_reads"] != want:
+                raise AssertionError(
+                    f"{name} on {run}: {c['host_dag_native_reads']} of "
+                    f"{c['host_dag_reads']} DAG reads served natively, "
+                    f"not {want}")
+            reads[run] = [res.store.get_codes(i).tobytes()
                           for i in range(res.store.n_reads)]
             with open(f"{pfx}.bp.p_ctg.gfa", "rb") as f:
-                gfa[dev] = f.read()
-        if reads["cuda"] != reads["cpu"]:
-            raise AssertionError(f"{name}: the corrected reads differ "
-                                 "between cuda and cpu")
-        if gfa["cuda"] != gfa["cpu"] or not gfa["cpu"]:
-            raise AssertionError(f"{name}: bp.p_ctg.gfa differs between "
-                                 "cuda and cpu (or is empty)")
-        print(f"[dag] {name}: cuda and cpu corrected reads and "
-              "bp.p_ctg.gfa byte-identical", flush=True)
+                gfa[run] = f.read()
+        for run in ("cuda_python", "cpu"):
+            if reads[run] != reads["cuda"]:
+                raise AssertionError(f"{name}: the corrected reads differ "
+                                     f"between cuda and {run}")
+            if gfa[run] != gfa["cuda"] or not gfa["cuda"]:
+                raise AssertionError(f"{name}: bp.p_ctg.gfa differs between "
+                                     f"cuda and {run} (or is empty)")
+        print(f"[dag] {name}: cuda (native), cuda (Python) and cpu "
+              "corrected reads and bp.p_ctg.gfa byte-identical", flush=True)
     return out
 
 

@@ -141,6 +141,10 @@ def _implied_string(tb: np.ndarray, ic: np.ndarray, ib: np.ndarray) -> bytes:
 
 MSA_MAX_BACKBONE = 64
 MSA_MAX_VOTER = 128
+# a cluster is voted on by at least OCC_TOT strings, and a string or a
+# column wins with more than OCC_EXACT of them
+OCC_TOT = 3
+OCC_EXACT = 0.500001
 
 
 def _ins_bundle_walk(ins_i: dict, n_voters: int, occ_exact: float
@@ -337,8 +341,8 @@ def cluster_range(q: np.ndarray, cs: int, ce: int):
 
 def dag_cluster_consensus(q: np.ndarray, tbs: OverlapTracebacks,
                           cis_idx: np.ndarray, clusters,
-                          het_sites=None,
-                          occ_tot: int = 3, occ_exact: float = 0.500001):
+                          het_sites=None, occ_tot: int = OCC_TOT,
+                          occ_exact: float = OCC_EXACT):
     """Sequence-level consensus over ambiguous clusters (~the reference's
     DAG consensus, Merge_DAGCon Correct.cpp:5031 / POA.cpp): each cis
     overlap votes with the exact subsequence its traceback implies for

@@ -31,10 +31,7 @@ finish (the reference's barrier between ``kt_for`` and ``sl_ec_r``).
 from __future__ import annotations
 
 import contextlib
-import multiprocessing
 import os
-import warnings
-from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -65,14 +62,17 @@ LONG_INDEL_WIN_DIFF = 16
 # gather answered from the host table; ec_rounds the rounds run;
 # consensus_reads the reads through the consensus loop, host_dag_reads
 # those of them with an ambiguity cluster, which take the host DAG pass,
-# host_dag_s its seconds, dag_clusters the clusters it resolved and
-# host_dag_fallback_reads those of its reads that DeviceEC gave no
-# traceback columns (their column decisions stand alone)
+# host_dag_s its seconds, host_dag_native_reads those of its reads the
+# native host library served (all of them wherever it loads),
+# dag_clusters the clusters it resolved and host_dag_fallback_reads
+# those of its reads that DeviceEC gave no traceback columns (their
+# column decisions stand alone)
 STATS = trace.register("pipeline", {
     "index_s": 0.0, "chain_s": 0.0, "anchors_s": 0.0, "plan_many_s": 0.0,
     "tws_s": 0.0, "device_ec_s": 0.0, "consensus_s": 0.0, "host_dag_s": 0.0,
     "ec_rounds": 0, "consensus_reads": 0, "host_dag_reads": 0,
-    "dag_clusters": 0, "host_dag_fallback_reads": 0,
+    "host_dag_native_reads": 0, "dag_clusters": 0,
+    "host_dag_fallback_reads": 0,
     "frontend_rounds": 0, "mesh_rounds": 0, "mesh_fallback": 0})
 
 
@@ -272,8 +272,8 @@ def _round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
         # votes can't carry the cluster strings: reads whose vote matrix
         # shows an ambiguity cluster take the host DAG pass over their
         # gathered traceback columns (reads are independent until the
-        # barrier below, so they run first, in cfg.threads worker
-        # processes)
+        # barrier below, so they run first, in one native call over
+        # cfg.threads threads)
         routed = [rid for rid in outs if rid in cns_in
                   and _ambiguity_clusters(cns_in[rid][4])]
         dag = _host_dags(routed, outs, cns_in, store, cfg)
@@ -319,37 +319,26 @@ def _round(store: ReadStore, cfg: HifiasmConfig, ft: Optional[FilterTable],
 def _host_dags(rids, outs: dict, cns_in: dict, store: ReadStore,
                cfg: HifiasmConfig) -> dict:
     """The host DAG pass of every read in ``rids``: {rid:
-    ConsensusResult}, timed into ``host_dag_s``.  With ``cfg.threads``
-    above 1 the reads are shared, longest first, among that many worker
-    processes (at most one a CPU this process may run on), forked here so
-    that they read this round's store and DeviceEC results in place; the
-    results are the serial path's, bit for bit."""
+    ConsensusResult}, timed into ``host_dag_s``.  One call of the native
+    host library serves them all (``native.dag_reads_native``), longest
+    first, over ``cfg.threads`` threads of this process (at most one a
+    read and one a CPU this process may run on); without the library
+    ``_host_dag`` serves them one after another.  Either way the results
+    are ``_host_dag``'s, bit for bit."""
+    from hifiasm_tpu_torch.native import dag_reads_native
+
     out = {}
     if not rids:
         return out
     with trace.span(None, STATS, "host_dag_s"):
+        reads = [(store.get_codes(rid), outs[rid], cns_in[rid])
+                 for rid in rids]
         n = min(int(cfg.threads), len(rids), len(os.sched_getaffinity(0)))
-        if n <= 1:
-            res = [_host_dag(store.get_codes(rid), outs[rid], cns_in[rid])
-                   for rid in rids]
+        res = dag_reads_native(reads, max(n, 1))
+        if res is None:
+            res = [_host_dag(*r) for r in reads]
         else:
-            global _DAG_JOB
-            _DAG_JOB = (outs, cns_in, store)
-            rids = sorted(rids, key=lambda r: -int(store.lens[r]))
-            try:
-                with warnings.catch_warnings():
-                    # the workers run numpy only: no CUDA, torch or
-                    # profiler call, which is what a fork of a threaded
-                    # process may not make
-                    warnings.filterwarnings(
-                        "ignore", message=".*use of fork\\(\\) may lead to "
-                        "deadlocks", category=DeprecationWarning)
-                    with ProcessPoolExecutor(
-                            n, mp_context=multiprocessing.get_context(
-                                "fork")) as ex:
-                        res = list(ex.map(_dag_worker, rids))
-            finally:
-                _DAG_JOB = None
+            STATS["host_dag_native_reads"] += len(rids)
         for rid, (cns, n_cl, served) in zip(rids, res):
             out[rid] = cns
             STATS["dag_clusters"] += n_cl
@@ -360,23 +349,14 @@ def _host_dags(rids, outs: dict, cns_in: dict, store: ReadStore,
     return out
 
 
-# what the host DAG workers read: the round's (DeviceEC results,
-# consensus inputs, store), set while they run
-_DAG_JOB = None
-
-
-def _dag_worker(rid: int):
-    outs, cns_in, store = _DAG_JOB
-    return _host_dag(store.get_codes(rid), outs[rid], cns_in[rid])
-
-
 def _host_dag(q: np.ndarray, eco, cns: tuple):
-    """The host DAG pass of one read (ec/consensus.py): the strings each
-    cis overlap's traceback implies over the read's ambiguity clusters,
-    read from the columns DeviceEC gathered (``eco.dag``), vote on the
-    clusters; the replacements are applied over the device's column
-    decisions.  Returns (ConsensusResult, clusters, whether the read had
-    its columns)."""
+    """The host DAG pass of one read (ec/consensus.py), the plain version
+    of the native library's: the strings each cis overlap's traceback
+    implies over the read's ambiguity clusters, read from the columns
+    DeviceEC gathered (``eco.dag``), vote on the clusters; the
+    replacements are applied over the device's column decisions.
+    Returns (ConsensusResult, clusters, whether the read had its
+    columns)."""
     from hifiasm_tpu_torch.ec.consensus import (
         _ambiguity_clusters, consensus_apply, dag_cluster_consensus,
     )

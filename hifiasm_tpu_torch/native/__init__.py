@@ -117,6 +117,14 @@ def get_lib() -> Optional[ctypes.CDLL]:
         u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         u64p, i32p, i64p, ctypes.c_int64, i64p, ctypes.c_double,
         i64p, i64p, i64p]
+    lib.ht_dag_reads.restype = ctypes.c_void_p
+    lib.ht_dag_reads.argtypes = [
+        ctypes.c_int64, i64p, u8p, u8p, u8p, u8p, u8p, u8p, i64p, i64p,
+        i64p, i64p, i64p, u8p, u8p, i64p, i64p, i64p, i64p, i64p,
+        u8p, u8p, u8p, ctypes.c_int64, i64p, i64p, i64p, ctypes.c_double,
+        ctypes.c_int32, i64p]
+    lib.ht_dag_take.restype = None
+    lib.ht_dag_take.argtypes = [ctypes.c_void_p, u8p, i64p, i64p]
     _lib = lib
     return _lib
 
@@ -496,3 +504,93 @@ def hic_map_native(mat, k: int, hashes, uids, poss, pref16,
                    float(min_frac), uid_out, pos_out,
                    cands.reshape(-1))
     return uid_out, pos_out, cands
+
+
+def _flat(arrays, dtype) -> np.ndarray:
+    """The arrays end to end, as one contiguous ``dtype`` array."""
+    if not arrays:
+        return np.zeros(0, dtype)
+    return np.ascontiguousarray(np.concatenate(
+        [np.asarray(a).reshape(-1).astype(dtype, copy=False)
+         for a in arrays]))
+
+
+def _offsets(lens) -> np.ndarray:
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(np.asarray(lens, np.int64), out=off[1:])
+    return off
+
+
+def dag_reads_native(reads, threads: int):
+    """The host DAG pass of a round's reads in one native call
+    (``ht_dag_reads``) over ``threads`` OpenMP threads: ``reads`` is a
+    list of (codes, ReadECOut, consensus inputs), as
+    ``ec/pipeline._host_dag`` takes them, and the result is its list of
+    (ConsensusResult, clusters, whether the read had its columns), bit
+    for bit.  None if the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from hifiasm_tpu_torch.ec import consensus as C
+
+    n = len(reads)
+    qs = [q for q, _, _ in reads]
+    ecos = [eco for _, eco, _ in reads]
+    cns = [c for _, _, c in reads]
+    q_off = _offsets([len(q) for q in qs])
+    # the gathered columns: each distinct buffer once, segments rebased
+    bufs, buf_base, n_col = [], {}, 0
+    seg, seams = [], []
+    for eco in ecos:
+        d = eco.dag
+        if d is None:
+            seg.append(np.zeros((4, 0), np.int64))
+            seams.append(np.zeros((0, 4), np.int64))
+            continue
+        key = tuple(a.__array_interface__["data"][0]
+                    for a in (d.tb, d.ins_cnt, d.ins_base)) + (len(d.tb),)
+        if key not in buf_base:
+            buf_base[key] = n_col
+            bufs.append((d.tb, d.ins_cnt, d.ins_base))
+            n_col += len(d.tb)
+        seg.append(np.stack([np.asarray(d.o, np.int64),
+                             np.asarray(d.col, np.int64),
+                             np.asarray(d.n, np.int64),
+                             np.asarray(d.src, np.int64) + buf_base[key]]))
+        seams.append(np.asarray(d.seams, np.int64).reshape(-1, 4))
+    seg_off = _offsets([s.shape[1] for s in seg])
+    segs = np.concatenate(seg, axis=1) if n else np.zeros((4, 0), np.int64)
+    cols = [_flat([b[k] for b in bufs], np.uint8) for k in range(3)]
+    ovs = [eco.ov for eco in ecos]
+    params = np.array([C.DAG_CLUSTER_GAP, C.MAX_INS_TRACK,
+                       C.MSA_MAX_BACKBONE, C.MSA_MAX_VOTER, C.OCC_TOT],
+                      np.int64)
+    res = np.zeros((n, 5), np.int64)
+    h = lib.ht_dag_reads(
+        n, q_off, _flat(qs, np.uint8),
+        *(_flat([c[k] for c in cns], np.uint8) for k in range(5)),
+        _offsets([len(e.het_sites) for e in ecos]),
+        _flat([e.het_sites for e in ecos], np.int64),
+        _offsets([len(ov) for ov in ovs]),
+        _flat([ov.x_s for ov in ovs], np.int64),
+        _flat([np.asarray(ov.x_e, np.int64) - ov.x_s + 1 for ov in ovs],
+              np.int64),
+        _flat([e.is_match == 1 for e in ecos], np.uint8),
+        np.array([e.dag is not None for e in ecos], np.uint8),
+        seg_off, *(np.ascontiguousarray(segs[k]) for k in range(4)),
+        *cols, n_col, _offsets([len(s) for s in seams]),
+        _flat(seams, np.int64), params, C.OCC_EXACT, int(threads), res)
+    if not h:
+        raise RuntimeError("ht_dag_reads: a gathered segment or seam lies "
+                           "outside its overlap")
+    seq = np.empty(int(res[:, 0].sum()), np.uint8)
+    ed_pos = np.empty(int(res[:, 2].sum()), np.int64)
+    ed_delta = np.empty_like(ed_pos)
+    lib.ht_dag_take(h, seq, ed_pos, ed_delta)
+    s_off = _offsets(res[:, 0])
+    e_off = _offsets(res[:, 2])
+    return [(C.ConsensusResult(
+                seq[s_off[i]:s_off[i + 1]].copy(), int(res[i, 1]),
+                (ed_pos[e_off[i]:e_off[i + 1]].copy(),
+                 ed_delta[e_off[i]:e_off[i + 1]].copy())),
+             int(res[i, 3]), bool(res[i, 4])) for i in range(n)]

@@ -3,8 +3,8 @@
 // off the device by design (SURVEY §7: "graph cleaning is inherently
 // sequential/irregular — accept host execution") — transitive reduction
 // (asg_arc_del_trans Overlaps.cpp:5357), chain DP, minimizer sketching,
-// overlap-region finishing, anchor collection, k-mer counting and the
-// Hi-C vote mapping.
+// overlap-region finishing, anchor collection, k-mer counting, the
+// Hi-C vote mapping and the EC round's host DAG pass.
 
 #include <cstdint>
 #include <cstring>
@@ -1153,4 +1153,527 @@ extern "C" void ht_hic_map(
             }
         }
     }
+}
+
+// ---------------------------------------------------------------------
+// The host DAG pass of an EC round (ec/pipeline.py ``_host_dags``): for
+// each read with an ambiguity cluster, the strings its cis overlaps'
+// traceback columns (gathered from K1's outputs on the device) imply
+// over each cluster range vote on the range, by exact plurality, else
+// by the star MSA onto the plurality backbone (~Merge_DAGCon,
+// Correct.cpp:5031); the corrected read is then built from the
+// device's column decisions with those replacements.  Mirrors the
+// plain versions bit for bit: ec/window_align.py
+// ``WindowColumns.tracebacks``, ec/consensus.py
+// ``dag_cluster_consensus`` and ``consensus_apply``.  One call serves a
+// round's reads, longest first, over OpenMP threads; each read writes
+// only its own result.
+
+#include <map>
+#include <string>
+
+namespace {
+
+// Partial-order bundle walk over an insertion-vote map (mirrors
+// ec/consensus.py _ins_bundle_walk bit-for-bit): emit the longest
+// prefix every additional symbol of which keeps support above
+// occ_exact * n — the Merge_DAGCon bundle merge (Correct.cpp:5031)
+// for competing/nested insertion bundles.  Ties -> smallest symbol.
+void ins_bundle_walk(const std::map<std::string, int64_t>& m, int64_t n,
+                     double occ_exact, std::string& out) {
+    std::string pfx;
+    for (;;) {
+        int64_t wt[256];
+        memset(wt, 0, sizeof(wt));
+        bool any = false;
+        for (const auto& kv : m) {
+            const std::string& s = kv.first;
+            if (s.size() > pfx.size() &&
+                s.compare(0, pfx.size(), pfx) == 0) {
+                wt[(uint8_t)s[pfx.size()]] += kv.second;
+                any = true;
+            }
+        }
+        if (!any) break;
+        int b = 0;
+        int64_t mx = -1;
+        for (int c = 0; c < 256; ++c)
+            if (wt[c] > mx) { mx = wt[c]; b = c; }   // ties: smallest
+        if (!((double)mx > occ_exact * (double)n)) break;
+        pfx.push_back((char)b);
+    }
+    out += pfx;
+}
+
+// Star-MSA consensus over sorted cluster voter strings (mirrors
+// ec/consensus.py _star_msa_consensus bit-for-bit: diagonal > up > left
+// traceback; column ties -> smallest symbol; insertion bundles merge
+// via the prefix walk above).  The Merge_DAGCon role when exact
+// plurality fails.  False where the plain version returns None.
+bool star_msa_consensus(const std::vector<std::string>& strs,
+                        const std::string& backbone, double occ_exact,
+                        int64_t max_backbone, int64_t max_voter,
+                        std::string& out) {
+    const int64_t n = (int64_t)strs.size();
+    const int64_t B = (int64_t)backbone.size();
+    if (B == 0 || B > max_backbone) return false;
+    std::vector<std::array<int64_t, 5>> sub(
+        (size_t)B, std::array<int64_t, 5>{0, 0, 0, 0, 0});
+    std::vector<std::map<std::string, int64_t>> ins((size_t)B + 1);
+    // backbone homopolymer runs for the deletion-bundle
+    // canonicalization (the same-base node merging of Merge_DAGCon,
+    // Correct.cpp:4700,4806)
+    std::vector<int64_t> run_id((size_t)B, 0);
+    for (int64_t i = 1; i < B; ++i)
+        run_id[i] = run_id[i - 1] + (backbone[i] != backbone[i - 1]);
+    const int64_t n_runs = B ? run_id[B - 1] + 1 : 0;
+    std::vector<int64_t> run_len((size_t)n_runs, 0);
+    for (int64_t i = 0; i < B; ++i) run_len[run_id[i]]++;
+    std::vector<std::map<int64_t, int64_t>> run_sup((size_t)n_runs);
+    std::vector<int64_t> lv((size_t)n_runs, 0);
+    std::vector<int64_t> dp;
+    for (const std::string& s : strs) {
+        if ((int64_t)s.size() > max_voter) return false;
+        if (s == backbone) {
+            for (int64_t i = 0; i < B; ++i)
+                sub[i][(uint8_t)backbone[i]]++;
+            for (int64_t r = 0; r < n_runs; ++r)
+                run_sup[r][run_len[r]]++;
+            continue;
+        }
+        const int64_t m = (int64_t)s.size();
+        dp.assign((size_t)((B + 1) * (m + 1)), 0);
+        auto D = [&](int64_t i, int64_t j) -> int64_t& {
+            return dp[i * (m + 1) + j];
+        };
+        for (int64_t j = 0; j <= m; ++j) D(0, j) = j;
+        for (int64_t i = 0; i <= B; ++i) D(i, 0) = i;
+        for (int64_t i = 1; i <= B; ++i)
+            for (int64_t j = 1; j <= m; ++j) {
+                const int64_t d =
+                    D(i - 1, j - 1) + (s[j - 1] != backbone[i - 1]);
+                const int64_t u = D(i - 1, j) + 1;
+                const int64_t l = D(i, j - 1) + 1;
+                D(i, j) = (d <= u && d <= l) ? d : (u <= l ? u : l);
+            }
+        int64_t i = B, j = m;
+        std::string pend;
+        auto flush = [&](int64_t at) {
+            if (!pend.empty()) {
+                std::reverse(pend.begin(), pend.end());
+                ins[at][pend]++;
+                pend.clear();
+            }
+        };
+        std::fill(lv.begin(), lv.end(), 0);
+        while (i > 0 || j > 0) {
+            if (i > 0 && j > 0 &&
+                D(i, j) == D(i - 1, j - 1) +
+                               (s[j - 1] != backbone[i - 1])) {
+                flush(i);
+                sub[i - 1][(uint8_t)s[j - 1]]++;
+                lv[run_id[i - 1]]++;
+                --i;
+                --j;
+            } else if (i > 0 && D(i, j) == D(i - 1, j) + 1) {
+                flush(i);
+                sub[i - 1][4]++;
+                --i;
+            } else {
+                pend.push_back(s[j - 1]);
+                --j;
+            }
+        }
+        flush(0);
+        for (int64_t r = 0; r < n_runs; ++r) run_sup[r][lv[r]]++;
+    }
+    // per-run eligibility + canonical kept length: delete the k-th
+    // symbol only when the voters emitting < k symbols clear the
+    // column-deletion occ threshold
+    std::vector<int64_t> run_start((size_t)n_runs, 0);
+    for (int64_t r = 1; r < n_runs; ++r)
+        run_start[r] = run_start[r - 1] + run_len[r - 1];
+    std::vector<uint8_t> canon((size_t)n_runs, 0);
+    std::vector<int64_t> keep_len((size_t)n_runs, 0);
+    for (int64_t r = 0; r < n_runs; ++r) {
+        const int64_t R = run_len[r];
+        if (R < 2) continue;
+        const int64_t i0 = run_start[r];
+        bool inner_ins = false;
+        for (int64_t i = i0 + 1; i < i0 + R && !inner_ins; ++i)
+            inner_ins = !ins[i].empty();
+        if (inner_ins) continue;
+        const int b_r = (uint8_t)backbone[i0];
+        bool ok = true;
+        for (int64_t i = i0; i < i0 + R && ok; ++i) {
+            int w = 0;
+            for (int c = 1; c < 5; ++c)
+                if (sub[i][c] > sub[i][w]) w = c;
+            if (w != b_r && w != 4 &&
+                (double)sub[i][w] > occ_exact * n)
+                ok = false;
+        }
+        if (!ok) continue;
+        int64_t kept = 0;
+        for (int64_t k = 1; k <= R; ++k) {
+            int64_t ge_k = 0;
+            for (const auto& kv : run_sup[r])
+                if (kv.first >= k) ge_k += kv.second;
+            if (!((double)(n - ge_k) > occ_exact * n)) kept++;
+        }
+        canon[r] = 1;
+        keep_len[r] = kept;
+    }
+    out.clear();
+    for (int64_t i = 0; i <= B; ++i) {
+        if (!ins[i].empty()) ins_bundle_walk(ins[i], n, occ_exact, out);
+        if (i < B) {
+            const int64_t r = run_id[i];
+            if (canon[r]) {
+                if (i == run_start[r])
+                    out.append((size_t)keep_len[r], backbone[i]);
+                continue;
+            }
+            int w = 0;
+            for (int c = 1; c < 5; ++c)
+                if (sub[i][c] > sub[i][w]) w = c;
+            if ((double)sub[i][w] > occ_exact * n) {
+                if (w != 4) out.push_back((char)w);
+            } else {
+                out.push_back(backbone[i]);
+            }
+        }
+    }
+    return true;
+}
+
+// Levenshtein distance (ec/consensus.py _edit_distance).
+int64_t edit_distance(const uint8_t* a, int64_t na, const std::string& b) {
+    const int64_t nb = (int64_t)b.size();
+    std::vector<int64_t> prev((size_t)nb + 1), cur((size_t)nb + 1);
+    for (int64_t j = 0; j <= nb; ++j) prev[j] = j;
+    for (int64_t i = 1; i <= na; ++i) {
+        cur[0] = i;
+        for (int64_t j = 1; j <= nb; ++j) {
+            const int64_t s = prev[j - 1] + ((uint8_t)b[j - 1] != a[i - 1]);
+            cur[j] = std::min(s, std::min(prev[j] + 1, cur[j - 1] + 1));
+        }
+        std::swap(prev, cur);
+    }
+    return prev[nb];
+}
+
+struct DagIn {
+    const int64_t *q_off;
+    const uint8_t *q, *subw, *ins_p, *ins_base, *ins_len1, *amb;
+    const int64_t *het_off, *het;
+    const int64_t *ov_off, *ov_xs, *ov_n;
+    const uint8_t *ov_cis, *has_dag;
+    const int64_t *seg_off, *seg_o, *seg_col, *seg_n, *seg_src;
+    const uint8_t *col_tb, *col_ic, *col_ib;
+    int64_t n_col;
+    const int64_t *seam_off, *seams;
+    int64_t gap, max_ins, max_backbone, max_voter, occ_tot;
+    double occ_exact;
+};
+
+struct DagRead {
+    std::vector<uint8_t> seq;
+    std::vector<int64_t> ed_pos, ed_delta;
+    int64_t n_edits = 0, n_clusters = 0;
+    uint8_t served = 0;
+};
+
+struct Repl {
+    int64_t s, e;
+    std::string r;
+};
+
+// dag_cluster_consensus over one read's clusters: the replacements.
+// False when a gathered segment or seam falls outside its overlap.
+bool dag_clusters(const DagIn& in, int64_t r,
+                  const std::vector<std::pair<int64_t, int64_t>>& clusters,
+                  std::vector<Repl>& repl) {
+    const uint8_t* q = in.q + in.q_off[r];
+    const int64_t qlen = in.q_off[r + 1] - in.q_off[r];
+    const int64_t o0 = in.ov_off[r], n_ov = in.ov_off[r + 1] - o0;
+    const int64_t* xs = in.ov_xs + o0;
+    const int64_t* span = in.ov_n + o0;
+    const uint8_t* cis = in.ov_cis + o0;
+    // WindowColumns.tracebacks over the cis overlaps (the only ones
+    // read): every column unaligned (5), then the gathered segments,
+    // then the seam insertions
+    std::vector<int64_t> base((size_t)n_ov, -1);
+    int64_t tot = 0;
+    for (int64_t o = 0; o < n_ov; ++o)
+        if (cis[o]) { base[o] = tot; tot += span[o]; }
+    std::vector<uint8_t> tb((size_t)tot, 5), ic((size_t)tot, 0),
+        ib((size_t)tot, 0);
+    for (int64_t k = in.seg_off[r]; k < in.seg_off[r + 1]; ++k) {
+        const int64_t o = in.seg_o[k], n = in.seg_n[k];
+        if (o < 0 || o >= n_ov) return false;
+        if (base[o] < 0) continue;
+        const int64_t c = in.seg_col[k] - xs[o], src = in.seg_src[k];
+        if (c < 0 || n < 0 || c + n > span[o] || src < 0 ||
+            src + n > in.n_col)
+            return false;
+        memcpy(&tb[base[o] + c], in.col_tb + src, (size_t)n);
+        memcpy(&ic[base[o] + c], in.col_ic + src, (size_t)n);
+        memcpy(&ib[base[o] + c], in.col_ib + src, (size_t)n);
+    }
+    for (int64_t k = in.seam_off[r]; k < in.seam_off[r + 1]; ++k) {
+        const int64_t* sm = in.seams + 4 * k;
+        const int64_t o = sm[0], g = sm[2], b = sm[3];
+        if (o < 0 || o >= n_ov) return false;
+        if (base[o] < 0) continue;
+        const int64_t c = sm[1] - xs[o];
+        if (c < 0 || c >= span[o]) return false;
+        const int64_t t = base[o] + c;
+        if (ic[t] == 0) {
+            ic[t] = (uint8_t)std::min<int64_t>(g, 255);
+            ib[t] = (uint8_t)b;
+        } else if (ib[t] == b) {
+            ic[t] = (uint8_t)std::min<int64_t>(ic[t] + g, 255);
+        }
+    }
+    std::vector<uint8_t> het((size_t)qlen, 0);
+    for (int64_t k = in.het_off[r]; k < in.het_off[r + 1]; ++k)
+        if (in.het[k] >= 0 && in.het[k] < qlen) het[in.het[k]] = 1;
+    std::vector<std::string> strs;
+    std::string qs, cons;
+    for (const auto& cl : clusters) {
+        // cluster_range: a small context, then homopolymer-run ends
+        int64_t cs = std::max<int64_t>(0, cl.first - 2);
+        int64_t ce = std::min(qlen, cl.second + 2);
+        for (int64_t ext = 0; cs > 0 && q[cs - 1] == q[cs] && ext < 12;
+             ++ext)
+            --cs;
+        for (int64_t ext = 0; ce < qlen && q[ce] == q[ce - 1] && ext < 12;
+             ++ext)
+            ++ce;
+        bool has_het = false;
+        for (int64_t p = cs; p < ce && !has_het; ++p) has_het = het[p];
+        if (has_het) continue;            // never rewrite het evidence
+        strs.clear();
+        for (int64_t o = 0; o < n_ov; ++o) {
+            if (!cis[o] || xs[o] > cs || xs[o] + span[o] < ce) continue;
+            const int64_t lo = base[o] + (cs - xs[o]);
+            bool bad = false;
+            for (int64_t t = lo; t < lo + (ce - cs) && !bad; ++t)
+                bad = tb[t] > 4;          // window not aligned here
+            if (bad) continue;
+            std::string s;
+            for (int64_t t = lo; t < lo + (ce - cs); ++t) {
+                if (tb[t] <= 3) s.push_back((char)tb[t]);
+                if (ic[t] > 0)
+                    s.append((size_t)std::min<int64_t>(ic[t], in.max_ins),
+                             (char)(ib[t] <= 3 ? ib[t] : 3));
+            }
+            strs.push_back(std::move(s));
+        }
+        qs.clear();
+        for (int64_t p = cs; p < ce; ++p)
+            qs.push_back((char)(q[p] <= 3 ? q[p] : 3));
+        strs.push_back(qs);
+        const int64_t n_voters = (int64_t)strs.size();
+        if (n_voters < in.occ_tot) continue;
+        // plurality: the smallest of the most frequent strings
+        std::sort(strs.begin(), strs.end());
+        size_t bi = 0, bc = 0;
+        for (size_t i = 0; i < strs.size();) {
+            size_t j = i;
+            while (j < strs.size() && strs[j] == strs[i]) ++j;
+            if (j - i > bc) { bc = j - i; bi = i; }
+            i = j;
+        }
+        if ((double)bc > in.occ_exact * (double)n_voters) {
+            if (strs[bi] != qs) repl.push_back({cs, ce, strs[bi]});
+            continue;
+        }
+        if (star_msa_consensus(strs, strs[bi], in.occ_exact,
+                               in.max_backbone, in.max_voter, cons) &&
+            !cons.empty() && cons != qs)
+            repl.push_back({cs, ce, cons});
+    }
+    return true;
+}
+
+// consensus_apply: the corrected read from the column decisions and
+// the replacements (column edits inside a replaced range suppressed).
+void dag_apply(const DagIn& in, int64_t r, std::vector<Repl>& repl,
+               DagRead& out) {
+    const uint8_t* q = in.q + in.q_off[r];
+    const int64_t q0 = in.q_off[r], qlen = in.q_off[r + 1] - q0;
+    std::vector<uint8_t> ps((size_t)qlen), pi((size_t)qlen);
+    for (int64_t p = 0; p < qlen; ++p) {
+        ps[p] = in.subw[q0 + p] != 15;
+        pi[p] = in.ins_p[q0 + p] != 0;
+    }
+    std::sort(repl.begin(), repl.end(), [](const Repl& a, const Repl& b) {
+        if (a.s != b.s) return a.s < b.s;
+        if (a.e != b.e) return a.e < b.e;
+        return a.r < b.r;
+    });
+    for (const Repl& x : repl)
+        for (int64_t p = x.s; p < x.e; ++p) ps[p] = pi[p] = 0;
+    std::vector<int64_t> change;
+    for (int64_t p = 0; p < qlen; ++p)
+        if (ps[p] || pi[p]) change.push_back(p);
+    auto& seq = out.seq;
+    seq.reserve((size_t)qlen + 64);
+    auto take = [&](int64_t a, int64_t b) {      // q[a:b]
+        if (b > a) seq.insert(seq.end(), q + a, q + b);
+    };
+    if (change.empty() && repl.empty()) {
+        take(0, qlen);
+        return;
+    }
+    std::vector<uint8_t> qc;
+    int64_t prev = 0;
+    size_t ci = 0, ri = 0;
+    while (ci < change.size() || ri < repl.size()) {
+        if (ri < repl.size() &&
+            (ci >= change.size() || repl[ri].s <= change[ci])) {
+            const Repl& x = repl[ri++];
+            take(prev, x.s);
+            seq.insert(seq.end(), x.r.begin(), x.r.end());
+            qc.assign(q + x.s, q + x.e);
+            for (auto& v : qc) v = v <= 3 ? v : 3;
+            out.n_edits += edit_distance(qc.data(), x.e - x.s, x.r);
+            const int64_t d = (int64_t)x.r.size() - (x.e - x.s);
+            if (d != 0) {
+                out.ed_pos.push_back(x.e);
+                out.ed_delta.push_back(d);
+            }
+            prev = x.e;
+            continue;
+        }
+        const int64_t p = change[ci++];
+        take(prev, p);
+        if (ps[p]) {
+            const uint8_t w = in.subw[q0 + p];
+            if (w != 4) {                        // substitution
+                seq.push_back(w);
+            } else {                             // query base deleted
+                out.ed_pos.push_back(p + 1);
+                out.ed_delta.push_back(-1);
+            }
+            out.n_edits += 1;
+        } else {
+            seq.push_back(q[p]);
+        }
+        if (pi[p]) {
+            const int64_t n = (int64_t)in.ins_len1[q0 + p] + 1;
+            seq.insert(seq.end(), (size_t)n, in.ins_base[q0 + p]);
+            out.n_edits += n;
+            out.ed_pos.push_back(p + 1);
+            out.ed_delta.push_back(n);
+        }
+        prev = p + 1;
+    }
+    take(prev, qlen);
+}
+
+// _host_dag of one read.
+bool dag_read(const DagIn& in, int64_t r, DagRead& out) {
+    const uint8_t* amb = in.amb + in.q_off[r];
+    const int64_t qlen = in.q_off[r + 1] - in.q_off[r];
+    // _ambiguity_clusters: ambiguous columns within ``gap`` bases
+    std::vector<std::pair<int64_t, int64_t>> clusters;
+    int64_t s = -1, last = -1;
+    for (int64_t p = 0; p < qlen; ++p) {
+        if (!amb[p]) continue;
+        if (s < 0) {
+            s = p;
+        } else if (p - last > in.gap) {
+            clusters.push_back({s, last + 1});
+            s = p;
+        }
+        last = p;
+    }
+    if (s >= 0) clusters.push_back({s, last + 1});
+    out.n_clusters = (int64_t)clusters.size();
+    out.served = in.has_dag[r];
+    std::vector<Repl> repl;
+    if (in.has_dag[r] && !dag_clusters(in, r, clusters, repl)) return false;
+    dag_apply(in, r, repl, out);
+    return true;
+}
+
+struct DagRound {
+    std::vector<DagRead> reads;
+};
+
+}  // namespace
+
+// One round's host DAG pass over ``n_reads`` reads; returns a handle
+// to the results (``ht_dag_take`` copies them out and frees it), or
+// null when a gathered segment or seam lies outside its overlap.
+// ``res`` [n_reads, 5]: corrected length, edit count, (pos, delta)
+// events, clusters, whether the read had its columns.  ``params``:
+// cluster gap, MAX_INS_TRACK, MSA_MAX_BACKBONE, MSA_MAX_VOTER, occ_tot.
+extern "C" void* ht_dag_reads(
+    int64_t n_reads, const int64_t* q_off, const uint8_t* q,
+    const uint8_t* subw, const uint8_t* ins_p, const uint8_t* ins_base,
+    const uint8_t* ins_len1, const uint8_t* amb,
+    const int64_t* het_off, const int64_t* het,
+    const int64_t* ov_off, const int64_t* ov_xs, const int64_t* ov_n,
+    const uint8_t* ov_cis, const uint8_t* has_dag,
+    const int64_t* seg_off, const int64_t* seg_o, const int64_t* seg_col,
+    const int64_t* seg_n, const int64_t* seg_src,
+    const uint8_t* col_tb, const uint8_t* col_ic, const uint8_t* col_ib,
+    int64_t n_col, const int64_t* seam_off, const int64_t* seams,
+    const int64_t* params, double occ_exact, int32_t n_threads,
+    int64_t* res) {
+    const DagIn in{q_off, q, subw, ins_p, ins_base, ins_len1, amb,
+                   het_off, het, ov_off, ov_xs, ov_n, ov_cis, has_dag,
+                   seg_off, seg_o, seg_col, seg_n, seg_src,
+                   col_tb, col_ic, col_ib, n_col, seam_off, seams,
+                   params[0], params[1], params[2], params[3], params[4],
+                   occ_exact};
+    auto* h = new DagRound;
+    h->reads.resize((size_t)n_reads);
+    std::vector<int64_t> order((size_t)n_reads);
+    for (int64_t i = 0; i < n_reads; ++i) order[i] = i;
+    std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+        return q_off[a + 1] - q_off[a] > q_off[b + 1] - q_off[b];
+    });
+    int bad = 0;
+#pragma omp parallel for schedule(dynamic, 1) num_threads(n_threads > 0 ? n_threads : 1)
+    for (int64_t i = 0; i < n_reads; ++i) {
+        const int64_t r = order[i];
+        if (!dag_read(in, r, h->reads[r])) {
+#pragma omp atomic write
+            bad = 1;
+        }
+    }
+    if (bad) {
+        delete h;
+        return nullptr;
+    }
+    for (int64_t r = 0; r < n_reads; ++r) {
+        const DagRead& d = h->reads[r];
+        res[5 * r + 0] = (int64_t)d.seq.size();
+        res[5 * r + 1] = d.n_edits;
+        res[5 * r + 2] = (int64_t)d.ed_pos.size();
+        res[5 * r + 3] = d.n_clusters;
+        res[5 * r + 4] = d.served;
+    }
+    return h;
+}
+
+// Copy a round's results out, read after read (corrected codes, edit
+// positions, edit deltas), and free the handle.
+extern "C" void ht_dag_take(void* handle, uint8_t* seq, int64_t* ed_pos,
+                            int64_t* ed_delta) {
+    auto* h = static_cast<DagRound*>(handle);
+    for (const DagRead& d : h->reads) {
+        if (!d.seq.empty()) memcpy(seq, d.seq.data(), d.seq.size());
+        seq += d.seq.size();
+        for (size_t k = 0; k < d.ed_pos.size(); ++k) {
+            *ed_pos++ = d.ed_pos[k];
+            *ed_delta++ = d.ed_delta[k];
+        }
+    }
+    delete h;
 }

@@ -436,6 +436,7 @@ def test_mesh_assembly_end_to_end(tmp_path, monkeypatch):
         ignore_bin=True), device="cpu", mesh=CPU8)
     assert TP.STATS["mesh_rounds"] == 1
     assert TP.STATS["host_dag_reads"] > 0
+    assert TP.STATS["host_dag_native_reads"] == TP.STATS["host_dag_reads"]
     assert TP.STATS["host_dag_fallback_reads"] == 0
     assert TD.STATS["dag_gather_windows"] > 0
     assemble(ReadStore.from_arrays(names, reads), HifiasmConfig(

@@ -6,8 +6,8 @@ against the JAX package on the CPU: a small repeat-bearing ONT store
 rescue keeps records and the chemical-arc rule cuts reads) assembled
 with the bloom filter on
 (-f37) gives the same bp.p_ctg.gfa (and unitig graphs and contig FASTA)
-and the same corrected reads, byte for byte, with the host DAG re-runs in
-one process or shared among forked workers; K1's plain version at XL
+and the same corrected reads, byte for byte, with the host DAG pass on
+one thread or three (the native host library's OpenMP threads); K1's plain version at XL
 375 equals ``banded_batch_np`` on ONT-error windows; and the counters
 that the ONT path feeds are filled.  The CUDA side of the same contract
 is ``python3 chip_smoke.py --ont`` on the card (phases 11 and 11b)."""
@@ -89,17 +89,20 @@ def test_ont_counters(runs):
 
 
 def test_ont_host_dag_workers_match_serial(runs, tmp_path):
-    """The host DAG re-runs shared among forked worker processes (``-t
-    3``) give the serial path's outputs and corrected reads, byte for
-    byte, over the same reads."""
+    """The host DAG pass over three OpenMP threads of the native host
+    library (``-t 3``) gives the one-thread run's outputs and corrected
+    reads, byte for byte, over the same reads, all of them served by the
+    native call."""
     _, pt, _, res, c = runs
     assert c["P"]["host_dag_reads"] > 1
+    assert c["P"]["host_dag_native_reads"] == c["P"]["host_dag_reads"]
     p3 = str(tmp_path / "t3")
     trace.reset()
     res3 = assemble(ont_store(), HifiasmConfig(
         output_prefix=p3, ignore_bin=True, mesh_devices=1, threads=3, **ONT),
         device="cpu")
     assert P.STATS["host_dag_reads"] == c["P"]["host_dag_reads"]
+    assert P.STATS["host_dag_native_reads"] == P.STATS["host_dag_reads"]
     for suffix in OUTPUTS:
         with open(f"{pt}.{suffix}", "rb") as f, \
                 open(f"{p3}.{suffix}", "rb") as g:
